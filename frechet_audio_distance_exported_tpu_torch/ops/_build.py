@@ -1,0 +1,94 @@
+"""Build the package's CUDA sources on first use and load them with ctypes.
+
+Every csrc/*.cu file is compiled by nvcc, for sm_90a, into one shared
+library with a plain C interface; no PyTorch header is included, so a build
+takes seconds rather than the minutes a torch extension build takes. The
+library lands in _build/ (listed in .gitignore), named by a hash of the
+sources and flags, so an edited source is rebuilt and an unchanged one is
+loaded as it is. A missing nvcc, a failed build or a failed load raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+PACKAGE_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR / "_build"
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas=-v",  # registers, shared memory and spills of each kernel, into the build log
+)
+
+
+def find_nvcc() -> str:
+    nvcc = shutil.which("nvcc")
+    if nvcc is None:
+        candidate = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+        if candidate.is_file():
+            nvcc = str(candidate)
+    if nvcc is None:
+        raise RuntimeError(
+            "nvcc not found (not on PATH, nor under $CUDA_HOME/bin or /usr/local/cuda/bin): "
+            "the CUDA kernels of frechet_audio_distance_exported_tpu_torch cannot be built"
+        )
+    return nvcc
+
+
+def library_path() -> Path:
+    """Where the library for the current sources and flags lives."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(CSRC_DIR.glob("*.cu")):
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    return BUILD_DIR / f"libfad_kernels_{digest.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile csrc/*.cu unless the library for these sources exists; returns its path."""
+    out = library_path()
+    if out.exists():
+        return out
+    sources = sorted(str(p) for p in CSRC_DIR.glob("*.cu"))
+    if not sources:
+        raise RuntimeError(f"no CUDA sources under {CSRC_DIR}")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *sources]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    out.with_suffix(".log").write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}) building {out.name}:\n{proc.stdout}{proc.stderr}"
+        )
+    os.replace(tmp, out)  # atomic: a concurrent builder never loads a half-written file
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def load_library() -> ctypes.CDLL:
+    """Build if needed, load once per process, and declare the C entry points."""
+    lib = ctypes.CDLL(str(build()))
+    lib.vggish_logmel_nbin_pad.argtypes = []
+    lib.vggish_logmel_nbin_pad.restype = ctypes.c_int
+    lib.vggish_logmel_launch.argtypes = [
+        ctypes.c_void_p,  # wave
+        ctypes.c_void_p,  # dft (cos, sin) pairs
+        ctypes.c_void_p,  # mel
+        ctypes.c_void_p,  # out
+        ctypes.c_int,  # batch
+        ctypes.c_longlong,  # num_samples
+        ctypes.c_int,  # num_frames
+        ctypes.c_void_p,  # cudaStream_t
+    ]
+    lib.vggish_logmel_launch.restype = ctypes.c_int
+    return lib

@@ -1,0 +1,115 @@
+"""The VGGish log-mel frontend: the CUDA kernel's wrapper and its plain version.
+
+fused_vggish_logmel launches csrc/vggish_logmel.cu, the Hopper port of the
+TPU kernel frechet_audio_distance_exported_tpu/ops/pallas_frontend.py:83
+(the source's header says what bounds it and how it is laid out). A CPU
+tensor goes to fused_vggish_logmel_reference, the plain torch chunk-sum
+version of the same function; a CUDA tensor goes to the kernel or raises.
+There is no fallback from one to the other.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+import torch
+
+from . import _build, dsp
+from .frontends import (
+    VGGISH_FFT,
+    VGGISH_HOP,
+    VGGISH_LOG_OFFSET,
+    VGGISH_MEL_BINS,
+    VGGISH_MEL_MAX_HZ,
+    VGGISH_MEL_MIN_HZ,
+    VGGISH_SAMPLE_RATE,
+    VGGISH_WINDOW,
+)
+
+# Kernel launches in this process. Plain-version calls do not count.
+LAUNCHES = 0
+
+_MAX_GRID_Y = 65535  # the kernel puts the batch on gridDim.y
+
+
+def _htk_mel_np() -> np.ndarray:
+    return dsp.htk_mel_matrix(
+        VGGISH_MEL_BINS, VGGISH_FFT // 2 + 1, VGGISH_SAMPLE_RATE,
+        VGGISH_MEL_MIN_HZ, VGGISH_MEL_MAX_HZ,
+    )
+
+
+@functools.lru_cache(maxsize=8)
+def _mel_tensor(device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(_htk_mel_np()).to(device)
+
+
+@functools.lru_cache(maxsize=8)
+def _kernel_operands(device: torch.device, nbin_pad: int):
+    """(dft [400, nbin_pad, 2] (cos, sin) pairs, mel [257, 64]) on ``device``.
+
+    Built once per device from the same chunked matrix as the plain version,
+    without its zero rows 400-479, with cos and sin of a bin side by side
+    and zero bins past 256."""
+    cat_c, nbin = dsp._chunked_dft_cat(VGGISH_WINDOW, VGGISH_FFT, VGGISH_HOP)
+    cat2d = cat_c.reshape(-1, 2 * nbin)[:VGGISH_WINDOW]
+    pairs = np.zeros((VGGISH_WINDOW, nbin_pad, 2), np.float32)
+    pairs[:, :nbin, 0] = cat2d[:, :nbin]
+    pairs[:, :nbin, 1] = cat2d[:, nbin:]
+    return torch.from_numpy(pairs).to(device), _mel_tensor(device)
+
+
+def fused_vggish_logmel_reference(wave: torch.Tensor, num_frames: int) -> torch.Tensor:
+    """Plain torch version: float32 [B, S] at 16 kHz -> [B, num_frames, 64]
+    log(HTK mel of |windowed DFT| + 0.01), chunk-sum order."""
+    mag = dsp.stft_magnitude_strided(wave, num_frames, VGGISH_WINDOW, VGGISH_FFT, VGGISH_HOP)
+    mel = torch.matmul(mag, _mel_tensor(wave.device))
+    return torch.log(mel + VGGISH_LOG_OFFSET)
+
+
+def fused_vggish_logmel(wave: torch.Tensor, num_frames: int) -> torch.Tensor:
+    """float32 [B, S] at 16 kHz -> [B, num_frames, 64] HTK log-mel.
+
+    Frame t spans wave[t*160 : t*160 + 400]; samples past S read as zero.
+    No mask: VGGish callers mask whole patches by per-file patch counts.
+    CPU tensor: the plain version. CUDA tensor: the hand-written kernel."""
+    global LAUNCHES
+    if wave.dtype != torch.float32:
+        raise TypeError(f"fused_vggish_logmel takes float32, got {wave.dtype}")
+    if wave.dim() != 2:
+        raise ValueError(f"fused_vggish_logmel takes [B, S], got shape {tuple(wave.shape)}")
+    if num_frames < 0:
+        raise ValueError(f"num_frames must be >= 0, got {num_frames}")
+    if wave.device.type == "cpu":
+        return fused_vggish_logmel_reference(wave, num_frames)
+    if wave.device.type != "cuda":
+        raise ValueError(f"fused_vggish_logmel runs on CPU or CUDA tensors, got {wave.device}")
+    if not wave.is_contiguous():
+        raise ValueError("fused_vggish_logmel needs a contiguous wave")
+    batch, num_samples = wave.shape
+    if batch > _MAX_GRID_Y:
+        raise ValueError(f"batch {batch} exceeds the kernel's grid limit {_MAX_GRID_Y}")
+
+    lib = _build.load_library()
+    dft, mel = _kernel_operands(wave.device, lib.vggish_logmel_nbin_pad())
+    out = torch.empty((batch, num_frames, VGGISH_MEL_BINS), dtype=torch.float32, device=wave.device)
+    if batch == 0 or num_frames == 0:
+        return out
+    with torch.cuda.device(wave.device):
+        stream = torch.cuda.current_stream(wave.device).cuda_stream
+        err = lib.vggish_logmel_launch(
+            ctypes.c_void_p(wave.data_ptr()),
+            ctypes.c_void_p(dft.data_ptr()),
+            ctypes.c_void_p(mel.data_ptr()),
+            ctypes.c_void_p(out.data_ptr()),
+            batch,
+            num_samples,
+            num_frames,
+            ctypes.c_void_p(stream),
+        )
+    if err != 0:
+        raise RuntimeError(f"vggish_logmel kernel launch failed with cudaError {err}")
+    LAUNCHES += 1
+    return out

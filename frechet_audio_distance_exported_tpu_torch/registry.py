@@ -1,0 +1,91 @@
+"""Model registry: names, sample rates, embedding dims, weight bundles.
+
+Copied from frechet_audio_distance_exported_tpu/registry.py (L15-24, L39-48,
+L91-138) so the port never imports the JAX package. The download URL tables
+and the PANN/Encodec rate tables stay behind until their slices are ported.
+"""
+
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass
+
+# Valid model names and their configurations (reference: fad.py:109-117).
+VALID_MODELS = {
+    "vggish": {"sample_rate": 16000, "embedding_dim": 128},
+    "pann-8k": {"sample_rate": 8000, "embedding_dim": 2048},
+    "pann-16k": {"sample_rate": 16000, "embedding_dim": 2048},
+    "pann-32k": {"sample_rate": 32000, "embedding_dim": 2048},
+    "encodec-24k": {"sample_rate": 24000, "embedding_dim": 128, "channels": 1},
+    "encodec-48k": {"sample_rate": 48000, "embedding_dim": 128, "channels": 2},
+    "clap": {"sample_rate": 48000, "embedding_dim": 512},
+}
+
+# Weight bundle file names: the same .npz bundles the JAX package loads.
+WEIGHT_FILENAMES = {
+    "vggish": "vggish_tpu.npz",
+    "pann-8k": "pann_cnn14_8k_tpu.npz",
+    "pann-16k": "pann_cnn14_16k_tpu.npz",
+    "pann-32k": "pann_cnn14_32k_tpu.npz",
+    "encodec-24k": "encodec_24k_tpu.npz",
+    "encodec-48k": "encodec_48k_tpu.npz",
+    "clap": "clap_tpu.npz",
+}
+
+
+def default_ckpt_dir() -> str:
+    """Default cache directory for weight bundles (shared with the JAX
+    package, so one converted bundle serves both)."""
+    env = os.environ.get("FAD_TPU_CKPT_DIR")
+    if env:
+        return env
+    cache_home = os.environ.get("XDG_CACHE_HOME", os.path.join(os.path.expanduser("~"), ".cache"))
+    return os.path.join(cache_home, "fad_tpu")
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    """Resolved configuration for one model variant."""
+
+    name: str
+    sample_rate: int
+    embedding_dim: int
+    weight_filename: str = ""
+
+    @property
+    def family(self) -> str:
+        if self.name.startswith("pann-"):
+            return "pann"
+        if self.name.startswith("encodec-"):
+            return "encodec"
+        return self.name
+
+
+def get_model_config(model_name: str) -> ModelConfig:
+    if model_name not in VALID_MODELS:
+        raise ValueError(
+            f"Unknown model: {model_name}. Valid options: {list(VALID_MODELS.keys())}"
+        )
+    cfg = VALID_MODELS[model_name]
+    return ModelConfig(
+        name=model_name,
+        sample_rate=cfg["sample_rate"],
+        embedding_dim=cfg["embedding_dim"],
+        weight_filename=WEIGHT_FILENAMES[model_name],
+    )
+
+
+# The model names this package runs so far; the others wait in ROADMAP.md Queue 1.
+PORTED_MODELS = ("vggish",)
+
+
+def ported_model_config(model_name: str) -> ModelConfig:
+    """get_model_config (same ValueError for unknown names), then
+    NotImplementedError for a valid name that is not ported yet."""
+    cfg = get_model_config(model_name)
+    if model_name not in PORTED_MODELS:
+        raise NotImplementedError(
+            f"{model_name!r} is not ported to PyTorch yet (ROADMAP.md Queue 1); "
+            f"ported: {list(PORTED_MODELS)}"
+        )
+    return cfg
