@@ -4,8 +4,9 @@ Counterpart of frechet_audio_distance_exported_tpu/fad.py: the same
 constructor kwargs (minus ``mesh``, plus ``device``), the same methods
 (score / get_embeddings / _get_embedding_for_audio /
 calculate_embd_statistics / calculate_frechet_distance / _load_audio_files /
-warmup), the same -1 error sentinel and .npy embedding caches. This slice
-runs VGGish; the other six model names raise NotImplementedError.
+warmup), the same -1 error sentinel and .npy embedding caches. The port
+runs VGGish and PANN (pann-8k/16k/32k); CLAP and Encodec raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import torch
 
 from . import registry
 from .config import resolve_device, set_exact_float32
+from .models.pann import PANN
 from .models.vggish import VGGish
 from .ops import stats as stats_ops
 from .pipeline import EmbeddingPipeline
@@ -64,13 +66,15 @@ class FrechetAudioDistance:
         Args (reference-compatible):
             ckpt_dir: folder of weight bundles (.npz). Defaults to the JAX
                 package's cache dir (FAD_TPU_CKPT_DIR overrides).
-            model_name: one of VALID_MODELS; this slice runs 'vggish'.
+            model_name: one of VALID_MODELS; the port runs 'vggish' and
+                'pann-8k' / 'pann-16k' / 'pann-32k'.
             sample_rate: must equal the model default or be None.
             channels: number of channels (1 for mono).
             verbose: progress printing.
             audio_load_worker: decode thread count.
         Extensions:
-            weights: 'auto' (load <ckpt_dir>/vggish_tpu.npz) or 'random'.
+            weights: 'auto' (load the model's bundle from <ckpt_dir>, e.g.
+                vggish_tpu.npz) or 'random'.
             seed: generator seed for weights='random'.
             file_batch / patch_chunk: batching knobs of the pipeline.
             device: 'cuda' (default; raises without CUDA) or 'cpu'.
@@ -111,8 +115,9 @@ class FrechetAudioDistance:
         state = weight_store.get_params(
             self.model_name, self.ckpt_dir, weights=self._weights_mode, seed=self._seed
         )
-        with torch.device("meta"):
-            model = VGGish()
+        family = registry.ported_model_config(self.model_name).family
+        with torch.device("meta"):  # no throwaway init of the full-size weights
+            model = PANN() if family == "pann" else VGGish()
         model.load_state_dict(state, assign=True)
         self.model = model.to(self.device).eval()
         self.pipeline = EmbeddingPipeline(
@@ -130,7 +135,7 @@ class FrechetAudioDistance:
 
     def get_embeddings(self, x: List[np.ndarray], sr: int) -> np.ndarray:
         """Embeddings for a list of audio arrays, concatenated over files
-        (one row per 0.96 s patch)."""
+        (VGGish: one row per 0.96 s patch; PANN: one row per file)."""
         per_file = self.pipeline.embed_files(x, sr, strict=False)
         embd_lst = [e for e in per_file if e is not None]
         if not embd_lst:

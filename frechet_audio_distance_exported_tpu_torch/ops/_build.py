@@ -3,9 +3,11 @@
 Every csrc/*.cu file is compiled by nvcc, for sm_90a, into one shared
 library with a plain C interface; no PyTorch header is included, so a build
 takes seconds rather than the minutes a torch extension build takes. The
-library lands in _build/ (listed in .gitignore), named by a hash of the
-sources and flags, so an edited source is rebuilt and an unchanged one is
-loaded as it is. A missing nvcc, a failed build or a failed load raises.
+sources compile in parallel (one nvcc process each, all started together)
+and are then linked. The library lands in _build/ (listed in .gitignore),
+named by a hash of the sources and flags, so an edited source is rebuilt
+and an unchanged one is loaded as it is. A missing nvcc, a failed build or
+a failed load raises.
 """
 
 from __future__ import annotations
@@ -22,9 +24,10 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    *ARCH_FLAGS,
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas=-v",  # registers, shared memory and spills of each kernel, into the build log
 )
 
@@ -57,19 +60,39 @@ def build() -> Path:
     out = library_path()
     if out.exists():
         return out
-    sources = sorted(str(p) for p in CSRC_DIR.glob("*.cu"))
+    sources = sorted(CSRC_DIR.glob("*.cu"))
     if not sources:
         raise RuntimeError(f"no CUDA sources under {CSRC_DIR}")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *sources]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    out.with_suffix(".log").write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
+    nvcc = find_nvcc()
+    tag = f"{out.stem}.{os.getpid()}"
+    objects = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources]
+    tmp = out.with_name(f"{tag}.tmp.so")
+    compiles = [
+        [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)] for src, obj in zip(sources, objects)
+    ]
+    procs = [
+        subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for cmd in compiles
+    ]
+    log, failed = [], []
+    for cmd, proc in zip(compiles, procs):
+        output = proc.communicate()[0]
+        log.append(" ".join(cmd) + "\n" + output)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}) on {cmd[-1]}:\n{output}")
+    if not failed:
+        link = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objects)]
+        proc = subprocess.run(link, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        log.append(" ".join(link) + "\n" + proc.stdout)
+        if proc.returncode != 0:
+            failed.append(f"nvcc link failed ({proc.returncode}):\n{proc.stdout}")
+    out.with_suffix(".log").write_text("\n".join(log))
+    for obj in objects:
+        obj.unlink(missing_ok=True)
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}) building {out.name}:\n{proc.stdout}{proc.stderr}"
-        )
+        raise RuntimeError(f"building {out.name}:\n" + "\n".join(failed))
     os.replace(tmp, out)  # atomic: a concurrent builder never loads a half-written file
     return out
 
@@ -91,4 +114,20 @@ def load_library() -> ctypes.CDLL:
         ctypes.c_void_p,  # cudaStream_t
     ]
     lib.vggish_logmel_launch.restype = ctypes.c_int
+    lib.pann_logmel_nbin_pad.argtypes = [ctypes.c_int]  # n_fft
+    lib.pann_logmel_nbin_pad.restype = ctypes.c_int
+    lib.pann_logmel_launch.argtypes = [
+        ctypes.c_void_p,  # wave
+        ctypes.c_void_p,  # n_valid (int32)
+        ctypes.c_void_p,  # dft (cos, sin) pairs
+        ctypes.c_void_p,  # mel
+        ctypes.c_void_p,  # out
+        ctypes.c_int,  # batch
+        ctypes.c_longlong,  # num_samples
+        ctypes.c_int,  # num_frames
+        ctypes.c_int,  # n_fft
+        ctypes.c_int,  # hop
+        ctypes.c_void_p,  # cudaStream_t
+    ]
+    lib.pann_logmel_launch.restype = ctypes.c_int
     return lib

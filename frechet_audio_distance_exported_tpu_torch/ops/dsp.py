@@ -1,14 +1,15 @@
 """DSP building blocks: numpy constant builders and the torch chunk-sum STFT.
 
 The numpy builders are copies of frechet_audio_distance_exported_tpu/ops/dsp.py
-(L33-108, L178-207), kept here so the port never imports the JAX package.
+(L33-160, L178-207), kept here so the port never imports the JAX package.
 They are float64 NumPy, cached per configuration.
 
-stft_magnitude_strided is the torch counterpart of the JAX chunk-sum STFT
-(ops/dsp.py L210-276, the single_matmul=False branch): framing becomes
-shifted views of a non-overlapping reshape of the wave into hop-sized rows,
-and the windowed DFT is the sum of ceil(W/hop) [T, hop] x [hop, 2F]
-products. It is the plain version of the log-mel kernel
+stft_spectrum_strided / stft_power_strided / stft_magnitude_strided are the
+torch counterparts of the JAX chunk-sum STFT (ops/dsp.py L210-276, the
+single_matmul=False branch): framing becomes shifted views of a
+non-overlapping reshape of the wave into hop-sized rows, and the windowed
+DFT is the sum of ceil(W/hop) [T, hop] x [hop, 2F] products, in chunk
+order. They are the plain versions of the log-mel kernels
 (ops/cuda_frontend.py).
 """
 
@@ -83,6 +84,57 @@ def htk_mel_matrix(
     return weights.astype(np.float32)
 
 
+# Copied from frechet_audio_distance_exported_tpu/ops/dsp.py:111.
+def _hz_to_mel_slaney(frequencies):
+    frequencies = np.asanyarray(frequencies, dtype=np.float64)
+    f_min, f_sp = 0.0, 200.0 / 3
+    mels = (frequencies - f_min) / f_sp
+    min_log_hz = 1000.0
+    min_log_mel = (min_log_hz - f_min) / f_sp
+    logstep = np.log(6.4) / 27.0
+    log_region = frequencies >= min_log_hz
+    mels = np.where(
+        log_region,
+        min_log_mel + np.log(np.maximum(frequencies, min_log_hz) / min_log_hz) / logstep,
+        mels,
+    )
+    return mels
+
+
+# Copied from frechet_audio_distance_exported_tpu/ops/dsp.py:127.
+def _mel_to_hz_slaney(mels):
+    mels = np.asanyarray(mels, dtype=np.float64)
+    f_min, f_sp = 0.0, 200.0 / 3
+    freqs = f_min + f_sp * mels
+    min_log_hz = 1000.0
+    min_log_mel = (min_log_hz - f_min) / f_sp
+    logstep = np.log(6.4) / 27.0
+    log_region = mels >= min_log_mel
+    freqs = np.where(log_region, min_log_hz * np.exp(logstep * (mels - min_log_mel)), freqs)
+    return freqs
+
+
+# Copied from frechet_audio_distance_exported_tpu/ops/dsp.py:140.
+@functools.lru_cache(maxsize=16)
+def slaney_mel_matrix(
+    sample_rate: int, n_fft: int, n_mels: int, fmin: float, fmax: float
+) -> np.ndarray:
+    """[F, M] Slaney-scale, Slaney-normalized mel matrix (librosa parity:
+    librosa.filters.mel(htk=False, norm='slaney'), transposed)."""
+    fftfreqs = np.linspace(0.0, sample_rate / 2.0, 1 + n_fft // 2)
+    mel_f = _mel_to_hz_slaney(
+        np.linspace(_hz_to_mel_slaney(fmin), _hz_to_mel_slaney(fmax), n_mels + 2)
+    )
+    fdiff = np.diff(mel_f)
+    ramps = mel_f[:, None] - fftfreqs[None, :]
+    lower = -ramps[:-2] / fdiff[:-1][:, None]
+    upper = ramps[2:] / fdiff[1:][:, None]
+    weights = np.maximum(0.0, np.minimum(lower, upper))
+    enorm = 2.0 / (mel_f[2 : n_mels + 2] - mel_f[:n_mels])
+    weights *= enorm[:, None]
+    return weights.T.astype(np.float32)
+
+
 @functools.lru_cache(maxsize=16)
 def chunked_dft_matrices(window_length: int, fft_length: int, hop_length: int):
     """The windowed DFT matrix split into hop-sized row chunks, zero-padded:
@@ -117,15 +169,16 @@ def _chunked_dft_cat_tensor(
     return torch.from_numpy(cat_c).to(device)
 
 
-def stft_magnitude_strided(
+def stft_spectrum_strided(
     wave: torch.Tensor,
     num_frames: int,
     window_length: int,
     fft_length: int,
     hop_length: int,
-) -> torch.Tensor:
-    """[B, S] float32 -> [B, num_frames, F] windowed-DFT magnitude, uncentered
-    frames wave[t*hop : t*hop + W]; samples past S read as zero.
+):
+    """[B, S] float32 -> (re, im), each [B, num_frames, F], of the windowed
+    DFT of the uncentered frames wave[t*hop : t*hop + W]; samples past S
+    read as zero.
 
     Chunk-sum order: re|im = sum over m of X[:, m:m+T] @ C_m, summed in
     chunk order like the JAX XLA path."""
@@ -140,5 +193,15 @@ def stft_magnitude_strided(
     for m in range(num_chunks):
         t = torch.matmul(x[:, m : m + num_frames], cat_c[m])
         both = t if both is None else both + t
-    re, im = both[..., :nbin], both[..., nbin:]
-    return torch.sqrt(re * re + im * im)
+    return both[..., :nbin], both[..., nbin:]
+
+
+def stft_power_strided(wave, num_frames, window_length, fft_length, hop_length) -> torch.Tensor:
+    """[B, S] -> [B, num_frames, F] power re^2 + im^2 (stft_spectrum_strided)."""
+    re, im = stft_spectrum_strided(wave, num_frames, window_length, fft_length, hop_length)
+    return re * re + im * im
+
+
+def stft_magnitude_strided(wave, num_frames, window_length, fft_length, hop_length) -> torch.Tensor:
+    """[B, S] -> [B, num_frames, F] magnitude sqrt(re^2 + im^2)."""
+    return torch.sqrt(stft_power_strided(wave, num_frames, window_length, fft_length, hop_length))

@@ -1,18 +1,25 @@
-"""Batched VGGish audio frontend (torch).
+"""Batched audio frontends (torch) for the VGGish and PANN families.
 
-Counterpart of frechet_audio_distance_exported_tpu/ops/frontends.py for the
-VGGish family: mono 16 kHz -> 25 ms / 10 ms periodic-Hann STFT magnitude
-(512-point) -> HTK mel (64 bins, 125-7500 Hz, DC zeroed) -> log(mel + 0.01)
--> non-overlapping [96, 64] patches, incomplete tail dropped.
+Counterpart of frechet_audio_distance_exported_tpu/ops/frontends.py:
+- VGGish: mono 16 kHz -> 25 ms / 10 ms periodic-Hann STFT magnitude
+  (512-point) -> HTK mel (64 bins, 125-7500 Hz, DC zeroed) -> log(mel + 0.01)
+  -> non-overlapping [96, 64] patches, incomplete tail dropped.
+- PANN: mono at the model rate -> librosa-style centered, reflect-padded
+  STFT power -> Slaney mel (64 bins) -> 10*log10(max(mel, 1e-10)), with the
+  rows past each file's frame count set to 0 (the reference's zero pad onto
+  the 32k-24 time grid).
 
-The host only decodes and resamples; the frontend runs on the device with
-per-file frame counts kept out of the shapes (callers mask whole patches).
-A CUDA tensor goes to the hand-written log-mel kernel, a CPU tensor to its
-plain torch version (ops/cuda_frontend.py decides, by the tensor's device).
+The host only decodes, resamples and applies PANN's small reflect pad; the
+frontend runs on the device with per-file frame counts kept out of the
+shapes (VGGish callers mask whole patches, PANN masks rows in the kernel).
+A CUDA tensor goes to a hand-written log-mel kernel, a CPU tensor to its
+plain torch version (ops/cuda_frontend.py and ops/cuda_pann_frontend.py
+decide, by the tensor's device).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 # VGGish frontend constants (JAX ops/frontends.py L38-46).
@@ -25,6 +32,15 @@ VGGISH_MEL_MIN_HZ = 125.0
 VGGISH_MEL_MAX_HZ = 7500.0
 VGGISH_LOG_OFFSET = 0.01
 VGGISH_PATCH_FRAMES = 96  # 0.96 s window and hop -> non-overlapping patches
+
+# PANN frontend configs (JAX ops/frontends.py L50-55). The 48 kHz entry is
+# the CLAP mel config, which the PANN log-mel kernel also serves.
+PANN_CONFIGS = {
+    8000: {"sample_rate": 8000, "window_size": 256, "hop_size": 80, "mel_bins": 64, "fmin": 50, "fmax": 4000},
+    16000: {"sample_rate": 16000, "window_size": 512, "hop_size": 160, "mel_bins": 64, "fmin": 50, "fmax": 8000},
+    32000: {"sample_rate": 32000, "window_size": 1024, "hop_size": 320, "mel_bins": 64, "fmin": 50, "fmax": 14000},
+    48000: {"sample_rate": 48000, "window_size": 1024, "hop_size": 480, "mel_bins": 64, "fmin": 50, "fmax": 14000},
+}
 
 
 def vggish_num_frames(num_samples: int) -> int:
@@ -39,14 +55,40 @@ def vggish_num_patches(num_samples: int) -> int:
     return vggish_num_frames(num_samples) // VGGISH_PATCH_FRAMES
 
 
-def dequant_i16(wave: torch.Tensor) -> torch.Tensor:
+# Copied from frechet_audio_distance_exported_tpu/ops/frontends.py:101.
+def pann_num_frames(num_samples: int, hop_size: int) -> int:
+    """librosa center=True frame count: 1 + floor(S / hop)."""
+    return 1 + num_samples // hop_size
+
+
+# Copied from frechet_audio_distance_exported_tpu/ops/frontends.py:106.
+def pann_valid_time(time: int) -> int:
+    """Smallest t >= time with t = 32k - 24 (the exported-PANN time grid the
+    reference zero-pads to). That padding is part of the numerics: zero
+    log-mel rows flow through global pooling."""
+    k = (time + 24 + 31) // 32
+    valid = 32 * k - 24
+    if valid < time:  # unreachable for time >= 1; mirrors the reference's own bump
+        valid += 32
+    return valid
+
+
+# Copied from frechet_audio_distance_exported_tpu/ops/frontends.py:216.
+def reflect_pad_host(audio: np.ndarray, n_fft: int) -> np.ndarray:
+    """librosa center=True reflect pad (host-side, O(n_fft) work). It keeps
+    the device frontend independent of each file's true length, so zero-
+    padded buffers stay numerically exact."""
+    return np.pad(audio, n_fft // 2, mode="reflect")
+
+
+def dequant_i16(wave: torch.Tensor, full_scale: float = 32768.0) -> torch.Tensor:
     """int16-shipped waveforms -> float32 on the device; float32 passes through.
 
-    Division, not a reciprocal multiply: k / 32768 reproduces the host's
-    float32 dequantisation bit for bit, and stays exact for a grid whose
-    reciprocal is not a power of two (CLAP's k/32767, when it is ported)."""
+    Division, not a reciprocal multiply: k / full_scale reproduces the
+    host's float32 dequantisation bit for bit, and stays exact for a grid
+    whose reciprocal is not a power of two (CLAP's k/32767)."""
     if wave.dtype == torch.int16:
-        return wave.to(torch.float32) / 32768.0
+        return wave.to(torch.float32) / full_scale
     return wave
 
 
@@ -64,3 +106,28 @@ def vggish_patches_batch(wave: torch.Tensor, num_patches: int) -> torch.Tensor:
     """[B, S] -> [B, P, 96, 64] non-overlapping log-mel patches."""
     log_mel = vggish_logmel_batch(wave, num_patches * VGGISH_PATCH_FRAMES)
     return log_mel.reshape(wave.shape[0], num_patches, VGGISH_PATCH_FRAMES, VGGISH_MEL_BINS)
+
+
+def pann_logmel_batch(
+    padded_wave: torch.Tensor,
+    target_sample_rate: int,
+    num_frames: int,
+    n_valid_frames: torch.Tensor,
+    i16_full_scale: float = 32768.0,
+) -> torch.Tensor:
+    """Reflect-padded [B, L] float32 (or int16 on the k/i16_full_scale grid)
+    -> [B, num_frames, 64] Slaney log-mel in dB (JAX ops/frontends.py
+    L267-335).
+
+    Rows are reflect_pad_host(x, n_fft), zero-extended to a common length L.
+    Frame t spans padded[t*hop : t*hop + n_fft], which reproduces
+    librosa.stft(center=True, pad_mode='reflect'). Rows >= n_valid_frames[b]
+    (an int32 tensor on the wave's device) are exactly 0.0."""
+    from .cuda_pann_frontend import fused_pann_logmel
+
+    return fused_pann_logmel(
+        dequant_i16(padded_wave, i16_full_scale).contiguous(),
+        n_valid_frames,
+        target_sample_rate,
+        num_frames,
+    )

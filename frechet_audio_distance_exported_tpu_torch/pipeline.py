@@ -1,15 +1,20 @@
-"""Batched embedding pipeline (VGGish) on torch tensors.
+"""Batched embedding pipeline (VGGish, PANN) on torch tensors.
 
-Counterpart of frechet_audio_distance_exported_tpu/pipeline.py for the VGGish
-family. The host decodes, mono-mixes and resamples; waveforms are packed
-into a small set of length buckets and each chunk runs
+Counterpart of frechet_audio_distance_exported_tpu/pipeline.py. The host
+decodes, mono-mixes, resamples and applies PANN's reflect pad; waveforms are
+packed into a small set of buckets and each chunk runs
 
-    waveform batch -> log-mel kernel -> VGGish CNN -> rows (+ masks)
+    waveform batch -> log-mel kernel -> CNN -> rows (+ masks)
 
-on the device. Per-file patch counts P_i = floor(frames_i / 96) mask the
-rows of the padded bucket; the incomplete tail is dropped like the
-reference's. Row order of the concatenated embedding matrix is files in
-input order, patches in time order within a file.
+on the device. Planning rules, each part of the reference numerics:
+- VGGish: per-file patch counts P_i = floor(frames_i / 96) mask the rows of
+  the padded bucket; the incomplete tail is dropped like the reference's.
+- PANN: files are grouped by their 32k-24 time grid; log-mel rows past a
+  file's frame count are zeroed in the frontend. Files on different grids
+  never share a program: the grid length feeds global pooling and shows in
+  the embedding. One row per file.
+Row order of the concatenated embedding matrix is files in input order,
+patches in time order within a file.
 """
 
 from __future__ import annotations
@@ -24,32 +29,55 @@ from .ops import frontends as fe
 from .ops import stats as stats_ops
 from .ops.resample import resample
 
-# Files per device program by default. CPU keeps the JAX package's non-TPU
-# default. CUDA: 64 is the largest power of two under the 102-file clamp
-# that patch_chunk=1024 puts on 10 s clips (10 patches each), so full
-# chunks stay full; PERF.md records its peak device memory.
+# Files per device program by default, per device type, for every family.
+# CPU keeps the JAX package's non-TPU default. CUDA: for VGGish, 64 is the
+# largest power of two under the 102-file clamp that patch_chunk=1024 puts
+# on 10 s clips (10 patches each), so full chunks stay full; for PANN, 64
+# was the best of a 16/32/64/128 sweep on an H100 with pann-16k and 10 s
+# clips (port_measure.py). PERF.md records both sweeps and their peak memory.
 DEFAULT_FILE_BATCH = {"cpu": 32, "cuda": 64}
 
+# Upper bound on one PANN file's log-mel frames (JAX pipeline.py:73): beyond
+# it a single file's block-1 activations are too large to run alone, and the
+# file is refused loudly instead of running the device out of memory. 2^18
+# frames are about 44 min at 16 kHz. pann_frame_cap lowers it to what the
+# card's memory holds.
+PANN_MAX_FRAMES = 1 << 18
 
-def as_int16_exact(x: np.ndarray) -> Optional[np.ndarray]:
-    """int16 view of float audio that is exactly on the k/32768 grid
+# Bytes per log-mel frame that a lone file's program holds at its widest:
+# four block-1 activation tensors of [64 channels, 64 mel bins] float32
+# (convolution out, BatchNorm out, ReLU out, cuDNN workspace).
+_PANN_FRAME_BYTES = 4 * 64 * 64 * 4
+
+
+def pann_frame_cap(device: torch.device) -> int:
+    """PANN single-file frame cap: PANN_MAX_FRAMES, or fewer where half of the
+    CUDA card's memory cannot hold that many frames' block-1 activations."""
+    if device.type != "cuda":
+        return PANN_MAX_FRAMES
+    total = torch.cuda.get_device_properties(device).total_memory
+    return min(PANN_MAX_FRAMES, total // 2 // _PANN_FRAME_BYTES)
+
+
+def as_int16_exact(x: np.ndarray, full_scale: float = 32768.0) -> Optional[np.ndarray]:
+    """int16 view of float audio that is exactly on the k/full_scale grid
     (decoded PCM16 that was never resampled or mixed), else None. Shipping
     int16 halves the host-to-device bytes; the frontend dequantises on the
     device losslessly (ops.frontends.dequant_i16)."""
-    q = np.round(x * 32768.0)
-    if q.size and -32768.0 <= q.min() and q.max() <= 32767.0 and np.array_equal(q / 32768.0, x):
+    q = np.round(x * full_scale)
+    if q.size and -32768.0 <= q.min() and q.max() <= 32767.0 and np.array_equal(q / full_scale, x):
         return q.astype(np.int16)
     return None
 
 
-def _pack_wave(rows, b: int, length: int) -> np.ndarray:
+def _pack_wave(rows, b: int, length: int, full_scale: float = 32768.0) -> np.ndarray:
     """Zero-padded batch buffer [b, length]; int16 iff every row is int16
     (mixed chunks are dequantised on the host into a float32 buffer)."""
     all_i16 = all(r.dtype == np.int16 for r in rows)
     wave = np.zeros((b, length), np.int16 if all_i16 else np.float32)
     for row, r in enumerate(rows):
         if r.dtype == np.int16 and not all_i16:
-            r = r.astype(np.float32) / 32768.0
+            r = r.astype(np.float32) / full_scale
         wave[row, : r.shape[0]] = r
     return wave
 
@@ -94,6 +122,30 @@ def _fused_vggish_stats_step(model, wave, p_counts: torch.Tensor, state, num_pat
     return _fold_stats(state, emb, mask)
 
 
+def _mel_cnn_core(
+    model: torch.nn.Module,
+    wave: torch.Tensor,
+    n_valid: torch.Tensor,
+    target_sr: int,
+    num_frames: int,
+    i16_full_scale: float,
+) -> torch.Tensor:
+    """Reflect-padded [B, L] waveform -> [B, d]: log-mel (rows >= n_valid
+    zeroed) + CNN (JAX pipeline.py:219-241)."""
+    mel = fe.pann_logmel_batch(wave, target_sr, num_frames, n_valid, i16_full_scale)
+    return model(mel)
+
+
+def _fused_mel_cnn_stats_step(
+    model, wave, n_valid, n_live: int, state, target_sr, num_frames, i16_full_scale
+):
+    """Mel-CNN chunk + stats update; rows >= n_live are batch padding
+    (JAX pipeline.py:270)."""
+    emb = _mel_cnn_core(model, wave, n_valid, target_sr, num_frames, i16_full_scale)
+    mask = torch.arange(emb.shape[0], device=emb.device) < n_live
+    return _fold_stats(state, emb, mask)
+
+
 class StatsSink:
     """Sink marker: fold streaming statistics into each chunk on the device
     (embeddings never leave it)."""
@@ -121,7 +173,8 @@ class EmbeddingPipeline:
             file_batch = DEFAULT_FILE_BATCH[self.device.type]
         self.file_batch = file_batch
         if patch_chunk is None:
-            # The patch budget must admit file_batch full 10 s files.
+            # The VGGish patch budget must admit file_batch full 10 s files;
+            # other families ignore it.
             patch_chunk = max(1024, self.file_batch * 10)
         self.patch_chunk = patch_chunk
         self.verbose = verbose
@@ -142,7 +195,9 @@ class EmbeddingPipeline:
         device and the return value holds per-file row counts.
         """
         with torch.inference_mode():
-            return self._embed_vggish(audio_list, sr, strict, sink)
+            if self.cfg.family == "vggish":
+                return self._embed_vggish(audio_list, sr, strict, sink)
+            return self._embed_pann(audio_list, sr, strict, sink)
 
     def embed_single(self, audio: np.ndarray, sr: int) -> np.ndarray:
         """Single-file hook; raises on error."""
@@ -248,6 +303,115 @@ class EmbeddingPipeline:
         for i, count in counts.items():
             per_file[i] = count
         return per_file
+
+    def _embed_mel_cnn(
+        self, audio_list, strict, sink, prep_fn, group_key_fn, plan_fn,
+        i16_full_scale: float = 32768.0,
+    ):
+        """Shared scaffold of the mel-frontend CNN families (JAX
+        pipeline.py:694-767).
+
+        prep_fn(audio) -> (reflect_padded_wave, n_valid_frames); the wave may
+            be int16 on the k/i16_full_scale grid (PCM16-exact fast path)
+        group_key_fn(item) -> static-shape group key
+        plan_fn(key) -> (buffer_len, target_sample_rate, num_frames)
+        """
+        prepped: List[Optional[Tuple[np.ndarray, int]]] = []
+        for audio in audio_list:
+            try:
+                prepped.append(prep_fn(np.asarray(audio)))
+            except Exception as e:
+                if strict:
+                    raise
+                self._log_skip(e)
+                prepped.append(None)
+
+        groups: Dict[int, List[int]] = {}
+        for i, item in enumerate(prepped):
+            if item is not None:
+                groups.setdefault(group_key_fn(item), []).append(i)
+
+        per_file: List[Optional[np.ndarray]] = [None] * len(audio_list)
+        pending = []
+        done = 0
+        for key, idxs in sorted(groups.items()):
+            length, target_sr, num_frames = plan_fn(key)
+            # Bound the per-program activation footprint: the CNN's widest
+            # intermediate scales with b * num_frames, so long files shrink
+            # the batch; file_batch x 1032 frames (10 s clips) is the budget.
+            b_cap = min(self.file_batch, max(1, (self.file_batch * 1032) // num_frames))
+            for c0 in range(0, len(idxs), b_cap):
+                chunk_idx = idxs[c0 : c0 + b_cap]
+                b = bucket_batch(len(chunk_idx), b_cap)
+                wave = self._to_device(
+                    _pack_wave([prepped[i][0] for i in chunk_idx], b, length, i16_full_scale)
+                )
+                n_valid = np.zeros((b,), dtype=np.int32)  # padding rows: all masked
+                for row, i in enumerate(chunk_idx):
+                    n_valid[row] = prepped[i][1]
+                n_valid = self._to_device(n_valid)
+                if isinstance(sink, StatsSink):
+                    sink.state = _fused_mel_cnn_stats_step(
+                        self.model, wave, n_valid, len(chunk_idx), sink.state,
+                        target_sr, num_frames, i16_full_scale,
+                    )
+                    for i in chunk_idx:
+                        per_file[i] = 1
+                else:
+                    emb_dev = _mel_cnn_core(
+                        self.model, wave, n_valid, target_sr, num_frames, i16_full_scale
+                    )
+                    pending.append((chunk_idx, emb_dev))
+                done += len(chunk_idx)
+                if self.verbose:
+                    print(f"[FAD-TORCH] embedded {done}/{len(audio_list)} files")
+        # Copy back after all launches, so device work overlaps host packing.
+        for chunk_idx, emb_dev in pending:
+            emb = emb_dev.cpu().numpy()
+            for row, i in enumerate(chunk_idx):
+                per_file[i] = emb[row : row + 1]
+        return per_file
+
+    def _embed_pann(self, audio_list, sr, strict, sink=None):
+        """JAX pipeline.py:769-806: one row per file."""
+        target_sr = self.cfg.sample_rate
+        cfg = fe.PANN_CONFIGS[target_sr]
+        n_fft, hop = cfg["window_size"], cfg["hop_size"]
+        frame_cap = pann_frame_cap(self.device)
+
+        def prep(data):
+            if data.ndim > 1:
+                data = np.mean(data, axis=1)
+            if sr != target_sr:
+                data = resample(data, sr, target_sr)
+            data = data.astype(np.float32)
+            t_i = fe.pann_num_frames(len(data), hop)
+            if fe.pann_valid_time(t_i) < 40:
+                # The CNN needs time/32 >= 1 after five floor-halving pools;
+                # the torch reference errors out on such inputs too.
+                raise ValueError(
+                    f"Audio too short for PANN (grid {fe.pann_valid_time(t_i)} < 40 frames)"
+                )
+            if t_i > frame_cap:
+                raise ValueError(
+                    f"Audio too long for PANN ({t_i} log-mel frames > {frame_cap}): a "
+                    f"single file's activations would exceed device memory. Split the "
+                    f"file (PANN embeds one row per file, so scoring chunks separately "
+                    f"changes the statistics rows)."
+                )
+            # Pad first, then check the int16 grid: the wire carries the
+            # padded wave (reflection keeps PCM16 samples on the grid).
+            padded = fe.reflect_pad_host(data, n_fft)
+            q = as_int16_exact(padded)
+            return (padded if q is None else q), t_i
+
+        return self._embed_mel_cnn(
+            audio_list, strict, sink,
+            prep_fn=prep,
+            # The 32k-24 grid shows in the embedding: never mix grids.
+            group_key_fn=lambda item: fe.pann_valid_time(item[1]),
+            plan_fn=lambda t_grid: (t_grid * hop + n_fft, target_sr, t_grid),
+        )
 
     def _log_skip(self, e: Exception) -> None:
         if self.verbose:

@@ -2,7 +2,8 @@
 
 Copied from frechet_audio_distance_exported_tpu/registry.py (L15-24, L39-48,
 L91-138) so the port never imports the JAX package. The download URL tables
-and the PANN/Encodec rate tables stay behind until their slices are ported.
+stay behind (downloads are not ported); the PANN frontend geometry lives in
+ops/frontends.PANN_CONFIGS.
 """
 
 from __future__ import annotations
@@ -76,7 +77,7 @@ def get_model_config(model_name: str) -> ModelConfig:
 
 
 # The model names this package runs so far; the others wait in ROADMAP.md Queue 1.
-PORTED_MODELS = ("vggish",)
+PORTED_MODELS = ("vggish", "pann-8k", "pann-16k", "pann-32k")
 
 
 def ported_model_config(model_name: str) -> ModelConfig:

@@ -1,10 +1,14 @@
-"""Weights: the JAX package's .npz bundles -> the torch module's state_dict.
+"""Weights: the JAX package's .npz bundles -> the torch modules' state_dicts.
 
 The bundles are the ones frechet_audio_distance_exported_tpu/utils/weights.py
-(L21-64) writes: flat keys such as "features/0/w" over the JAX pytree
-{"features": [{"w": HWIO, "b"}] x 6, "embeddings": [{"w": [in, out], "b"}] x 3}.
+(L21-64) writes: flat keys such as "features/0/w" or "blocks/3/conv1/w" over
+the JAX pytrees
+- VGGish: {"features": [{"w": HWIO, "b"}] x 6, "embeddings": [{"w": [in, out], "b"}] x 3};
+- PANN:   {"bn0": {gamma, beta, mean, var}, "blocks": [{"conv1": {"w"}, "bn1",
+           "conv2": {"w"}, "bn2"}] x 6, "fc1": {"w", "b"}}.
 Layouts are converted once, here: convolution HWIO -> OIHW, linear
-[in, out] -> [out, in].
+[in, out] -> [out, in], BatchNorm (gamma, beta, mean, var) -> (weight,
+bias, running_mean, running_var).
 """
 
 from __future__ import annotations
@@ -16,11 +20,25 @@ import numpy as np
 import torch
 
 from .. import registry
+from ..models.pann import BLOCK_CHANNELS
 from ..models.vggish import CONV_CFG, FC_DIMS
 
 
-def params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
-    """JAX VGGish pytree of arrays -> VGGish state_dict (float32, CPU)."""
+def _f32(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32, order="C"))  # a writable copy
+
+
+def _batch_norm(prefix: str, p: Mapping) -> Dict[str, torch.Tensor]:
+    return {
+        f"{prefix}.weight": _f32(p["gamma"]),
+        f"{prefix}.bias": _f32(p["beta"]),
+        f"{prefix}.running_mean": _f32(p["mean"]),
+        f"{prefix}.running_var": _f32(p["var"]),
+        f"{prefix}.num_batches_tracked": torch.zeros((), dtype=torch.int64),
+    }
+
+
+def _vggish_state(tree: Mapping) -> Dict[str, torch.Tensor]:
     state = {}
     for i, p in enumerate(tree["features"]):
         state[f"features.{i}.weight"] = _f32(np.asarray(p["w"]).transpose(3, 2, 0, 1))
@@ -31,34 +49,94 @@ def params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
     return state
 
 
-def _f32(a) -> torch.Tensor:
-    return torch.from_numpy(np.array(a, dtype=np.float32, order="C"))  # a writable copy
+def _pann_state(tree: Mapping) -> Dict[str, torch.Tensor]:
+    state = _batch_norm("bn0", tree["bn0"])
+    for i, blk in enumerate(tree["blocks"]):
+        for conv, bn in (("conv1", "bn1"), ("conv2", "bn2")):
+            w = np.asarray(blk[conv]["w"]).transpose(3, 2, 0, 1)
+            state[f"blocks.{i}.{conv}.weight"] = _f32(w)
+            state.update(_batch_norm(f"blocks.{i}.{bn}", blk[bn]))
+    state["fc1.weight"] = _f32(np.asarray(tree["fc1"]["w"]).T)
+    state["fc1.bias"] = _f32(tree["fc1"]["b"])
+    return state
 
 
-def load_weights(path: str) -> Dict[str, torch.Tensor]:
-    """A VGGish .npz bundle -> state_dict."""
+def family_of_tree(tree: Mapping) -> str:
+    """'vggish' or 'pann', from the pytree's top-level keys."""
+    if "features" in tree and "embeddings" in tree:
+        return "vggish"
+    if "blocks" in tree and "bn0" in tree:
+        return "pann"
+    raise ValueError(f"not a VGGish or PANN parameter tree (keys {sorted(tree)})")
+
+
+def params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX VGGish or PANN pytree of arrays -> the module's state_dict (float32, CPU)."""
+    if family_of_tree(tree) == "vggish":
+        return _vggish_state(tree)
+    return _pann_state(tree)
+
+
+def _unflatten(flat: Mapping[str, np.ndarray]):
+    """Flat "a/0/b" keys -> nested dicts, with lists for exactly the
+    contiguous digit keys '0'..'n-1' (JAX utils/weights.py:34-54)."""
+    root: dict = {}
+    for key, value in flat.items():
+        parts = key.split("/")
+        node = root
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = value
+
+    def lists(node):
+        if not isinstance(node, dict):
+            return node
+        node = {k: lists(v) for k, v in node.items()}
+        if node and set(node) == {str(i) for i in range(len(node))}:
+            return [node[str(i)] for i in range(len(node))]
+        return node
+
+    return lists(root)
+
+
+def load_weights(path: str, family: str = None) -> Dict[str, torch.Tensor]:
+    """A VGGish or PANN .npz bundle -> state_dict. With ``family`` given, a
+    bundle of another family raises ValueError."""
     with np.load(path) as data:
-        flat = {k: data[k] for k in data.files}
-    tree: dict = {"features": [], "embeddings": []}
-    for group in tree:
-        i = 0
-        while f"{group}/{i}/w" in flat:
-            tree[group].append({"w": flat[f"{group}/{i}/w"], "b": flat[f"{group}/{i}/b"]})
-            i += 1
+        tree = _unflatten({k: data[k] for k in data.files})
+    found = family_of_tree(tree)
+    if family is not None and found != family:
+        raise ValueError(f"{path} holds {found} weights, not {family}")
     return params_from_jax(tree)
 
 
 def init_random_params(model_name: str, seed: int = 0) -> Dict[str, torch.Tensor]:
     """Torch-default-like uniform(±1/sqrt(fan_in)) weights from an explicit
-    generator (tests and benches). Not the JAX package's bits."""
-    registry.ported_model_config(model_name)
+    generator, BatchNorm as the identity like the JAX initializer
+    (models/common.py:194). Not the JAX package's bits."""
+    family = registry.ported_model_config(model_name).family
     gen = torch.Generator().manual_seed(seed)
 
     def uniform(shape, fan_in):
         bound = float(np.sqrt(1.0 / fan_in))
         return (torch.rand(shape, generator=gen) * 2.0 - 1.0) * bound
 
+    def identity_bn(prefix, dim):
+        ones, zeros = np.ones(dim, np.float32), np.zeros(dim, np.float32)
+        return _batch_norm(prefix, {"gamma": ones, "beta": zeros, "mean": zeros, "var": ones})
+
     state = {}
+    if family == "pann":
+        state.update(identity_bn("bn0", 64))
+        for i, (cin, cout) in enumerate(BLOCK_CHANNELS):
+            state[f"blocks.{i}.conv1.weight"] = uniform((cout, cin, 3, 3), 9 * cin)
+            state.update(identity_bn(f"blocks.{i}.bn1", cout))
+            state[f"blocks.{i}.conv2.weight"] = uniform((cout, cout, 3, 3), 9 * cout)
+            state.update(identity_bn(f"blocks.{i}.bn2", cout))
+        width = BLOCK_CHANNELS[-1][1]
+        state["fc1.weight"] = uniform((width, width), width)
+        state["fc1.bias"] = uniform((width,), width)
+        return state
     cin = 1
     for i, cout in enumerate(v for v in CONV_CFG if v != "M"):
         state[f"features.{i}.weight"] = uniform((cout, cin, 3, 3), 9 * cin)
@@ -78,7 +156,7 @@ def get_params(model_name: str, ckpt_dir: str, weights: str = "auto", seed: int 
         return init_random_params(model_name, seed)
     if weights != "auto":
         raise ValueError(f"weights must be 'auto' or 'random', got {weights!r}")
-    cfg = registry.get_model_config(model_name)
+    cfg = registry.ported_model_config(model_name)
     bundle_path = os.path.join(ckpt_dir, cfg.weight_filename)
     if not os.path.exists(bundle_path):
         raise FileNotFoundError(
@@ -87,7 +165,7 @@ def get_params(model_name: str, ckpt_dir: str, weights: str = "auto", seed: int 
             f"{ckpt_dir}, or pass weights='random' for testing."
         )
     try:
-        return load_weights(bundle_path)
+        return load_weights(bundle_path, cfg.family)
     except Exception as e:
         # A corrupt bundle must not fail with a cryptic np.load error: name
         # the file and the fix.

@@ -1,0 +1,267 @@
+"""On-card measurements of the PyTorch/CUDA port's fused embed+stats path.
+
+    python3 port_measure.py [--models pann-16k,vggish] [--clips 256]
+                            [--batches 16,32,64,128] [--out-dir measure_out]
+
+Needs one CUDA card; imports nothing of JAX. For each model, at full width
+with random weights drawn from seed 0, on --clips clips of 10 s of noise on
+the PCM16 grid at the model's rate (so chunks travel on the int16 wire), it
+measures pipeline.accumulate_stats over the whole list, the path that
+score(..., device_stats=True) runs:
+- sweep: audio-min/s and peak device memory for each file_batch, taken in
+  the order given and then in reverse, each after one warm-up pass;
+- profile: one pass at the CUDA default file_batch under torch.profiler:
+  the device-busy share (the union of device kernel and copy intervals over
+  the pass's wall) and device time per kernel name;
+- split (PANN models): the same pass's host preparation (reflect pad,
+  as_int16_exact, _pack_wave), host-to-device copies and device steps on
+  chunks already on the card, each timed alone;
+- cprofile: one pass under cProfile, the host functions with most own time.
+It also times the kernels' build: ops/_build.build() (one nvcc per source,
+in parallel, then a link) against one nvcc call for all sources.
+
+Prints a summary and writes port_measure.json under --out-dir. Numbers are
+of the card it ran on: the card's name and power limit are in the file.
+"""
+
+from __future__ import annotations
+
+import argparse
+import cProfile
+import json
+import pstats
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+CLIP_SECONDS = 10.0
+SEED = 0
+
+
+def synced_seconds(torch, fn) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def build_times(_build) -> dict:
+    """Seconds of the package's parallel build and of one nvcc for all sources,
+    each into an empty temporary directory."""
+    sources = sorted(str(p) for p in _build.CSRC_DIR.glob("*.cu"))
+    with tempfile.TemporaryDirectory() as tmp:
+        saved = _build.BUILD_DIR
+        _build.BUILD_DIR = Path(tmp) / "parallel"
+        try:
+            t0 = time.perf_counter()
+            _build.build()
+            parallel = time.perf_counter() - t0
+        finally:
+            _build.BUILD_DIR = saved
+        cmd = [_build.find_nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", f"{tmp}/one.so", *sources]
+        t0 = time.perf_counter()
+        subprocess.run(cmd, check=True, capture_output=True)
+        serial = time.perf_counter() - t0
+    return {"sources": len(sources), "parallel_s": parallel, "one_nvcc_s": serial}
+
+
+def device_profile(torch, run) -> dict:
+    """Busy share and per-kernel device time of one pass under torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        wall = synced_seconds(torch, run)
+    spans, per_name = [], {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        start, end = e.time_range.start, e.time_range.end
+        spans.append((start, end))
+        row = per_name.setdefault(e.name, [0.0, 0])
+        row[0] += (end - start) / 1e3
+        row[1] += 1
+    busy_us, reach = 0.0, float("-inf")
+    for start, end in sorted(spans):
+        if end > reach:
+            busy_us += end - max(start, reach)
+            reach = end
+    kernels = sorted(
+        ({"name": n, "ms": ms, "count": c} for n, (ms, c) in per_name.items()),
+        key=lambda r: -r["ms"],
+    )
+    return {
+        "wall_ms": wall * 1e3,
+        "device_busy_ms": busy_us / 1e3,
+        "busy_share": busy_us / 1e3 / (wall * 1e3),
+        "kernels": kernels,
+    }
+
+
+def host_profile(run, top: int = 15) -> list:
+    prof = cProfile.Profile()
+    prof.enable()
+    run()
+    prof.disable()
+    stats = pstats.Stats(prof)
+    rows = sorted(stats.stats.items(), key=lambda kv: -kv[1][2])[:top]
+    return [
+        {"function": f"{Path(f).name}:{line}({name})", "calls": nc, "own_ms": tt * 1e3,
+         "cum_ms": ct * 1e3}
+        for (f, line, name), (_, nc, tt, ct, _) in rows
+    ]
+
+
+def pann_split(torch, np, pipeline_mod, fe, pipe, clips) -> dict:
+    """Host preparation, host-to-device copies and device steps of one
+    accumulate_stats pass over uniform clips, each timed alone. It follows
+    EmbeddingPipeline._embed_pann for clips at the model's rate that share
+    one grid."""
+    cfg = pipe.cfg
+    target_sr = cfg.sample_rate
+    n_fft = fe.PANN_CONFIGS[target_sr]["window_size"]
+    hop = fe.PANN_CONFIGS[target_sr]["hop_size"]
+    t_i = fe.pann_num_frames(len(clips[0]), hop)
+    t_grid = fe.pann_valid_time(t_i)
+    length = t_grid * hop + n_fft
+    b_cap = min(pipe.file_batch, max(1, (pipe.file_batch * 1032) // t_grid))
+
+    def prepare():
+        packed = []
+        for c0 in range(0, len(clips), b_cap):
+            chunk = clips[c0 : c0 + b_cap]
+            rows = []
+            for data in chunk:
+                padded = fe.reflect_pad_host(data, n_fft)
+                q = pipeline_mod.as_int16_exact(padded)
+                rows.append(padded if q is None else q)
+            b = pipeline_mod.bucket_batch(len(chunk), b_cap)
+            n_valid = np.zeros((b,), np.int32)
+            n_valid[: len(chunk)] = t_i
+            packed.append((pipeline_mod._pack_wave(rows, b, length), n_valid, len(chunk)))
+        return packed
+
+    t0 = time.perf_counter()
+    packed = prepare()
+    host_s = time.perf_counter() - t0
+    on_card = []
+    copy_s = synced_seconds(torch, lambda: on_card.extend(
+        (pipe._to_device(w), pipe._to_device(v), n) for w, v, n in packed
+    ))
+
+    def steps():
+        state = None
+        for wave, n_valid, n_live in on_card:
+            state = pipeline_mod._fused_mel_cnn_stats_step(
+                pipe.model, wave, n_valid, n_live, state, target_sr, t_grid, 32768.0
+            )
+
+    with torch.inference_mode():
+        steps()  # warm-up
+        device_s = synced_seconds(torch, steps)
+    return {"host_prep_ms": host_s * 1e3, "copy_ms": copy_s * 1e3, "device_ms": device_s * 1e3,
+            "chunks": len(packed), "wire": str(packed[0][0].dtype)}
+
+
+def measure_model(torch, np, port, model_name: str, n_clips: int, batches, tmp) -> dict:
+    from frechet_audio_distance_exported_tpu_torch import pipeline as pipeline_mod
+    from frechet_audio_distance_exported_tpu_torch.ops import cuda_frontend, cuda_pann_frontend
+    from frechet_audio_distance_exported_tpu_torch.ops import frontends as fe
+
+    fad = port.FrechetAudioDistance(
+        model_name=model_name, weights="random", seed=SEED, ckpt_dir=tmp, device="cuda"
+    )
+    sr = fad.sample_rate
+    rng = np.random.default_rng(SEED)
+    clips = [
+        (np.round(rng.standard_normal(int(sr * CLIP_SECONDS)) * 0.1 * 32768.0).clip(-32768, 32767)
+         / 32768.0).astype(np.float32)
+        for _ in range(n_clips)
+    ]
+    audio_min = n_clips * CLIP_SECONDS / 60.0
+    kernel = cuda_pann_frontend if fad.pipeline.cfg.family == "pann" else cuda_frontend
+
+    def pipe_for(fb):
+        return pipeline_mod.EmbeddingPipeline(model_name, fad.model, fad.device, file_batch=fb)
+
+    def pass_of(pipe):
+        return lambda: pipe.accumulate_stats(clips, sr)
+
+    sweep = {fb: [] for fb in batches}
+    for fb in list(batches) + list(reversed(batches)):
+        run = pass_of(pipe_for(fb))
+        if not sweep[fb]:
+            run()  # warm-up: cuDNN's algorithm choice and the allocator's growth
+        torch.cuda.reset_peak_memory_stats()
+        s = synced_seconds(torch, run)
+        sweep[fb].append({"s": s, "audio_min_per_s": audio_min / s,
+                          "peak_gib": torch.cuda.max_memory_allocated() / 2**30})
+        print(f"{model_name} file_batch {fb}: {audio_min / s:.2f} audio-min/s, "
+              f"peak {sweep[fb][-1]['peak_gib']:.3f} GiB")
+
+    default = pipe_for(None)
+    run = pass_of(default)
+    run()
+    kernel.LAUNCHES = 0
+    prof = device_profile(torch, run)
+    prof["file_batch"] = default.file_batch
+    prof["kernel_launches"] = kernel.LAUNCHES
+    print(f"{model_name} profile at file_batch {default.file_batch}: wall "
+          f"{prof['wall_ms']:.1f} ms, device busy {prof['device_busy_ms']:.1f} ms "
+          f"({100 * prof['busy_share']:.1f} %)")
+    for row in prof["kernels"][:8]:
+        print(f"  {row['ms']:9.3f} ms  x{row['count']:<4d} {row['name'][:110]}")
+    out = {"clips": n_clips, "clip_seconds": CLIP_SECONDS, "sweep": sweep, "profile": prof}
+    if fad.pipeline.cfg.family == "pann":
+        out["split"] = pann_split(torch, np, pipeline_mod, fe, default, clips)
+        out["split"]["whole_pass_ms"] = synced_seconds(torch, run) * 1e3
+        print(f"{model_name} split: {out['split']}")
+    out["cprofile"] = host_profile(run)
+    for row in out["cprofile"][:6]:
+        print(f"  host {row['own_ms']:8.1f} ms own, {row['cum_ms']:8.1f} cum  {row['function']}")
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--models", default="pann-16k")
+    ap.add_argument("--clips", type=int, default=256)
+    ap.add_argument("--batches", default="16,32,64,128")
+    ap.add_argument("--out-dir", default=str(ROOT / "measure_out"))
+    args = ap.parse_args()
+
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("port_measure: needs a CUDA card", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT))
+    import frechet_audio_distance_exported_tpu_torch as port
+    from frechet_audio_distance_exported_tpu_torch.ops import _build
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(card)
+    result = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
+              "build": build_times(_build)}
+    print(f"build: {result['build']}")
+    batches = [int(b) for b in args.batches.split(",")]
+    with tempfile.TemporaryDirectory() as tmp:
+        for model_name in args.models.split(","):
+            result[model_name] = measure_model(torch, np, port, model_name, args.clips, batches, tmp)
+    out = Path(args.out_dir) / "port_measure.json"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(result, indent=1))
+    print(f"wrote {out}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -2,7 +2,7 @@
 
 The machine with the card has none of them, and score()'s -1 sentinel would
 turn a stray import on the scoring path into a silent wrong answer. This
-test scores a small corpus with the port in a subprocess whose import
+test scores a small corpus with the port (VGGish and pann-16k) in a subprocess whose import
 system refuses those modules (and the JAX package itself), modelled on
 test_torch_free_runtime.py, which guards the JAX package the other way.
 """
@@ -52,15 +52,16 @@ _CHILD = textwrap.dedent(
         for i, freq in enumerate((440.0, 660.0, 880.0)):
             write_wav(os.path.join(d, f"{{i}}.wav"), np.sin(2 * np.pi * freq * t) * scale, sr)
 
-    fad = FrechetAudioDistance(model_name="vggish", weights="random", ckpt_dir=ck, device="cpu")
-    host = fad.score(bg, ev)
-    streamed = fad.score(bg, ev, device_stats=True)
-    for score in (host, streamed):
+    scores = []
+    for model in ("vggish", "pann-16k"):
+        fad = FrechetAudioDistance(model_name=model, weights="random", ckpt_dir=ck, device="cpu")
+        scores += [fad.score(bg, ev), fad.score(bg, ev, device_stats=True)]
+    for score in scores:
         assert score != -1, "score failed under the import block"
         assert np.isfinite(score) and score > 0, score
     loaded = [m for m in sys.modules if any(m == b or m.startswith(b + ".") for b in BLOCKED)]
     assert not loaded, loaded
-    print("JAX_FREE_OK", host, streamed)
+    print("JAX_FREE_OK", *scores)
     """
 ).format(repo=str(REPO_ROOT))
 

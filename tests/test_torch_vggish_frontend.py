@@ -168,6 +168,7 @@ def test_library_name_follows_the_sources(monkeypatch, tmp_path):
     assert _build.library_path() != first
 
 
+@pytest.mark.cuda
 @pytest.mark.parametrize("num_frames", [960, 296])
 def test_kernel_matches_plain_version_on_the_card(cuda_device, num_frames):
     w = torch.from_numpy(_wave(4, (num_frames + 2) * fe.VGGISH_HOP, seed=num_frames))
@@ -181,6 +182,7 @@ def test_kernel_matches_plain_version_on_the_card(cuda_device, num_frames):
     torch.testing.assert_close(out, ref, rtol=0, atol=1e-4)
 
 
+@pytest.mark.cuda
 def test_wrapper_raises_on_a_non_contiguous_card_tensor(cuda_device):
     w = torch.zeros((4, 8000), device=cuda_device)[:, ::2]
     with pytest.raises(ValueError, match="contiguous"):
