@@ -2,25 +2,33 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from the sources in this checkout and checks
-each against its plain torch version at the main paths' shapes. Then it
-drives both ported paths through the public API,
+Builds the port's four CUDA kernels from the sources in this checkout and
+checks each against its plain torch version at its main path's shapes, at
+the CUDA file_batch of 64: the two log-mel kernels, swin_block_fused at
+CLAP stages 1-3 (shifted and not) and window_attention_fused at stage 4,
+each timed beside its plain version and its bound. Then it drives the
+ported paths through the public API,
 FrechetAudioDistance(weights="random", device="cuda"):
-- VGGish: scores two WAV corpora and checks the results;
+- VGGish: scores two 16 kHz WAV corpora and checks the results;
 - PANN: scores the same corpora with pann-16k, and a part of them with
-  pann-8k and pann-32k (the resample path and the other two geometries).
-Each path (vggish, pann-16k, pann-8k, pann-32k) runs with both kernels'
-launch counts set to 0 just before it and read just after, so the counts
-show which kernel the path went through; the `kernels` line gives each
-kernel's count on its main path (vggish, pann-16k), and the PANN kernel's
-count on each PANN path under "launches_by_path".
+  pann-8k and pann-32k (the resample path and the other two geometries);
+- CLAP: scores two 48 kHz corpora (with a 12 s clip, truncated, and a
+  0.5 s one), then the 16 kHz part (resampled as it is loaded), and holds
+  card embeddings against the CPU's on the pipeline's resample path.
+Each path runs with all four launch counts set to 0 just before it and read
+just after, so the counts show which kernels it went through: VGGish and
+PANN launch only their own log-mel kernel; CLAP launches the PANN log-mel
+kernel once per chunk, swin_block_fused exactly 10 times as often and
+window_attention_fused 2 times. The `kernels` line gives each kernel's
+count on its main path (vggish, pann-16k, clap) and the PANN kernel's count
+on every path that runs it under "launches_by_path".
 Any failure raises and the exit code is non-zero. It imports nothing of JAX.
 
 The last line of standard output is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}};
-the line before it lists the kernels with their launch counts, errors and
-times. Without CUDA, or outside a checkout of the repository, it exits
-non-zero and prints no result.
+the line before it lists the kernels with their launch counts, errors,
+times per 64-clip chunk and bounds. Without CUDA, or outside a checkout of
+the repository, it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -50,6 +58,40 @@ LOGMEL_ATOL = 1e-4  # VGGish kernel vs plain, exact float32 on both; only the su
 PANN_POWER_RTOL = 1e-5
 EMBEDDING_ATOL = 1e-4  # card vs CPU plain path: cuDNN vs CPU convolution order
 DEVICE_STATS_RTOL = 1e-3
+# Swin kernels vs plain: float32 on both sides, outputs of order 1; only the
+# summation orders differ.
+SWIN_ATOL = 1e-4
+CLAP_CLIPS = 16  # per corpus, 10 s at 48 kHz
+CLAP_LONG_SECONDS = 12.0  # past CLAP's 10 s: truncated to the 1001-frame read window
+# The least time of the H100 SXM (on-chip-measurement guide): float32 outside
+# the tensor cores, and device memory.
+F32_FLOPS = 67e12
+HBM_BYTES_PER_S = 3.35e12
+
+
+def bound(flops: float, nbytes: float):
+    """(least ms, what bounds it): the larger of flops at the float32 peak and
+    bytes at the memory rate."""
+    ops_ms, bytes_ms = flops / F32_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+class Counters:
+    """The four kernels' launch counts, set to 0 and read together."""
+
+    def __init__(self, cuda_frontend, cuda_pann_frontend, window_attn):
+        self.frontends = {"fused_vggish_logmel": cuda_frontend,
+                          "fused_pann_logmel": cuda_pann_frontend}
+        self.window_attn = window_attn
+
+    def zero(self) -> None:
+        for module in self.frontends.values():
+            module.LAUNCHES = 0
+        for name in self.window_attn.LAUNCHES:
+            self.window_attn.LAUNCHES[name] = 0
+
+    def read(self) -> dict:
+        return {**{k: m.LAUNCHES for k, m in self.frontends.items()}, **self.window_attn.LAUNCHES}
 
 
 def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
@@ -109,6 +151,26 @@ def write_corpora(root: Path, audio_io, np) -> tuple:
     return str(bg), str(ev), *small
 
 
+def write_clap_corpora(root: Path, audio_io, np) -> tuple:
+    """16 sines and 16 noise clips of 10 s at 48 kHz; the noise side also
+    holds a 12 s clip and a 0.5 s one."""
+    rng = np.random.default_rng(SEED + 2)
+    sr = 48000
+    bg, ev = root / "clap_bg", root / "clap_ev"
+    bg.mkdir()
+    ev.mkdir()
+    t = np.arange(int(sr * CLIP_SECONDS)) / sr
+    for i in range(CLAP_CLIPS):
+        freq = 220.0 * 2 ** (i / 12)
+        audio_io.write_wav(str(bg / f"sine{i:02d}.wav"), 0.5 * np.sin(2 * np.pi * freq * t), sr)
+        audio_io.write_wav(str(ev / f"noise{i:02d}.wav"), rng.standard_normal(t.size) * 0.1, sr)
+    audio_io.write_wav(str(ev / "long.wav"),
+                       rng.standard_normal(int(sr * CLAP_LONG_SECONDS)) * 0.1, sr)
+    audio_io.write_wav(str(ev / "short.wav"),
+                       0.5 * np.sin(2 * np.pi * 440.0 * t[: int(sr * SHORT_SECONDS)]), sr)
+    return str(bg), str(ev)
+
+
 def build_phase(torch, _build) -> None:
     t0 = time.perf_counter()
     lib_path = _build.build()
@@ -119,15 +181,18 @@ def build_phase(torch, _build) -> None:
             print("ptxas:", line.strip())
 
 
-def vggish_kernel_phase(torch, np, cuda_frontend, fe, batch: int):
+def vggish_kernel_phase(torch, np, cuda_frontend, fe, batch: int) -> dict:
     """VGGish kernel vs plain at B = the CUDA default file_batch, T = 960
     frames (10 s clips, in their length bucket of 163840 samples), and a
-    ragged T whose wave ends inside the last frame."""
+    ragged T whose wave ends inside the last frame. Returns the 960-frame
+    numbers, with its bound: per frame a [400] x [400, 257] (cos, sin) DFT
+    and a [257] x [257, 64] mel product."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED)
     shapes = [(960, 163840), (RAGGED_FRAMES, (RAGGED_FRAMES - 1) * fe.VGGISH_HOP + 300)]
+    bins = fe.VGGISH_FFT // 2 + 1
     max_err = 0.0
-    times = {}
+    rows = {}
     for num_frames, num_samples in shapes:
         wave = torch.randn((batch, num_samples), generator=gen, device=dev) * 0.1
         out = cuda_frontend.fused_vggish_logmel(wave, num_frames)
@@ -142,25 +207,33 @@ def vggish_kernel_phase(torch, np, cuda_frontend, fe, batch: int):
             lambda: cuda_frontend.fused_vggish_logmel(wave, num_frames),
             lambda: cuda_frontend.fused_vggish_logmel_reference(wave, num_frames),
         )
-        times[num_frames] = (kern, plain)
+        flops = batch * num_frames * (2 * 2 * fe.VGGISH_WINDOW * bins + 2 * bins * 64)
+        nbytes = 4 * (wave.numel() + out.numel() + fe.VGGISH_WINDOW * bins * 2 + bins * 64)
+        bound_ms, bound_by = bound(flops, nbytes)
+        rows[num_frames] = {"ms": kern, "plain_ms": plain, "bound_ms": bound_ms,
+                            "bound_by": bound_by}
         print(f"vggish logmel B={batch} T={num_frames} S={num_samples}: max_abs_err {err:.3e} "
               f"kernel {kern:.4f} ms ({runs[1]:.4f}, {runs[2]:.4f}) "
-              f"plain {plain:.4f} ms ({runs[0]:.4f}, {runs[3]:.4f})")
+              f"plain {plain:.4f} ms ({runs[0]:.4f}, {runs[3]:.4f}) bound {bound_ms:.4f} ms")
     check(max_err <= LOGMEL_ATOL, f"VGGish kernel vs plain log-mel {max_err} > {LOGMEL_ATOL}")
-    return max_err, times[960]
+    return {"max_abs_err": max_err, **rows[960]}
 
 
-def pann_kernel_phase(torch, np, cuda_pann_frontend, fe, batch: int):
+def pann_kernel_phase(torch, np, cuda_pann_frontend, fe, batch: int) -> dict:
     """PANN kernel vs plain at all four geometries: B = the CUDA PANN
     file_batch, T = 1032 (10 s clips on their grid; the buffer is the grid's
     t*hop + n_fft samples) and T = 1001 at 48 kHz, with a ragged n_valid on
-    some rows and one row of batch padding (n_valid 0)."""
+    some rows and one row of batch padding (n_valid 0). Returns the worst
+    error and each geometry's numbers; the bound counts the frames below
+    n_valid (the kernel skips tiles past it), each a [n_fft] x [n_fft,
+    n_fft/2+1] (cos, sin) DFT and a mel product."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
-    worst, times = 0.0, {}
+    worst, rows = 0.0, {}
     for sr in sorted(fe.PANN_CONFIGS):
         cfg = fe.PANN_CONFIGS[sr]
         n_fft, hop = cfg["window_size"], cfg["hop_size"]
+        bins = n_fft // 2 + 1
         num_frames = 1001 if sr == 48000 else 1032
         wave = torch.randn((batch, num_frames * hop + n_fft), generator=gen, device=dev) * 0.1
         nv = np.full((batch,), num_frames, np.int32)
@@ -186,42 +259,157 @@ def pann_kernel_phase(torch, np, cuda_pann_frontend, fe, batch: int):
             lambda: cuda_pann_frontend.fused_pann_logmel(wave, n_valid, sr, num_frames),
             lambda: cuda_pann_frontend.fused_pann_logmel_reference(wave, n_valid, sr, num_frames),
         )
-        times[sr] = (kern, plain)
+        flops = int(nv.sum()) * (2 * 2 * n_fft * bins + 2 * bins * 64)
+        nbytes = 4 * (wave.numel() + batch + out.numel() + n_fft * bins * 2 + bins * 64)
+        bound_ms, bound_by = bound(flops, nbytes)
+        rows[sr] = {"ms": kern, "plain_ms": plain, "bound_ms": bound_ms, "bound_by": bound_by}
         print(f"pann logmel {sr} Hz (n_fft {n_fft}, hop {hop}) B={batch} T={num_frames}: "
               f"max power err / file max {err:.3e}, kernel {kern:.4f} ms "
-              f"({runs[1]:.4f}, {runs[2]:.4f}) plain {plain:.4f} ms ({runs[0]:.4f}, {runs[3]:.4f})")
+              f"({runs[1]:.4f}, {runs[2]:.4f}) plain {plain:.4f} ms ({runs[0]:.4f}, {runs[3]:.4f}) "
+              f"bound {bound_ms:.4f} ms")
         check(err <= PANN_POWER_RTOL, f"PANN kernel vs plain at {sr} Hz: {err} > {PANN_POWER_RTOL}")
-    return worst, times[16000]
+    return {"max_abs_err": worst, "rows": rows}
 
 
-def run_scores(torch, fad, calls, counter, label: str) -> dict:
-    """fad.score for each (name, args, kwargs); each call must raise the counter."""
+def swin_layers(clap) -> dict:
+    """(stage, shifted) -> (kernel name, launches per forward), from the
+    model's own depths and shift rule."""
+    layers = {}
+    for i, depth in enumerate(clap.DEPTHS):
+        kernel = ("swin_block_fused" if clap.STAGE_DIMS[i] <= clap.FUSED_BLOCK_MAX_DIM
+                  else "window_attention_fused")
+        for j in range(depth):
+            shifted = j % 2 == 1 and clap.STAGE_RES[i] > clap.WINDOW_SIZE
+            name, count = layers.get((i, shifted), (kernel, 0))
+            layers[(i, shifted)] = (name, count + 1)
+    return layers
+
+
+def swin_kernel_phase(torch, np, window_attn, clap, batch: int) -> dict:
+    """Both Swin kernels vs plain at every layer shape of one CLAP forward at
+    B = the CUDA file_batch: swin_block_fused at stages 1-3 (shifted and not),
+    window_attention_fused at stage 4. Inputs are scaled as in the tests
+    (x 0.5, weights 0.05, biases 0.01). Per kernel: the worst error, and the
+    time, plain time and bound of one 64-clip chunk (each shape's launch
+    times its launches per forward). The bound counts 24*M*C^2 + 4*M*64*C
+    flops for the block and 8*M*C^2 + 4*M*64*C for the attention half (M =
+    tokens), and x, out, the weights, bias and mask as bytes."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    n = clap.WINDOW_SIZE ** 2
+
+    def normal(shape, scale, offset=0.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale + offset
+
+    summary = {name: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                      "flops": 0.0, "bytes": 0.0, "shapes": []}
+               for name in window_attn.LAUNCHES}
+    for (stage, shifted), (name, per_forward) in sorted(swin_layers(clap).items()):
+        c, heads, res = clap.STAGE_DIMS[stage], clap.NUM_HEADS[stage], clap.STAGE_RES[stage]
+        nw = (res // clap.WINDOW_SIZE) ** 2
+        table = normal(((2 * clap.WINDOW_SIZE - 1) ** 2, heads), 0.1)
+        index = torch.from_numpy(clap._relative_position_index(clap.WINDOW_SIZE).reshape(-1))
+        bias = table[index.long().to(dev)].reshape(n, n, heads).permute(2, 0, 1).contiguous()
+        if shifted:
+            mask = torch.from_numpy(
+                clap._shift_attn_mask(res, clap.WINDOW_SIZE, clap.WINDOW_SIZE // 2)).to(dev)
+        else:
+            mask = torch.zeros((1, n, n), device=dev)
+        args = dict(
+            x_windows=normal((batch * nw, n, c), 0.5),
+            w_qkv=normal((c, 3 * c), 0.05), b_qkv=normal((3 * c,), 0.01),
+            w_proj=normal((c, c), 0.05), b_proj=normal((c,), 0.01), bias=bias, mask=mask,
+            gamma1=normal((c,), 0.1, 1.0), beta1=normal((c,), 0.1),
+        )
+        if name == "swin_block_fused":
+            args.update(gamma2=normal((c,), 0.1, 1.0), beta2=normal((c,), 0.1),
+                        w_fc1=normal((c, 4 * c), 0.05), b_fc1=normal((4 * c,), 0.01),
+                        w_fc2=normal((4 * c, c), 0.05), b_fc2=normal((c,), 0.01))
+        kernel = getattr(window_attn, name)
+        plain = getattr(window_attn, f"{name}_reference")
+        out = kernel(**args, heads=heads, num_windows=nw)
+        ref = plain(**args, heads=heads, num_windows=nw)
+        torch.cuda.synchronize()
+        check(out.shape == ref.shape == args["x_windows"].shape, f"{name} shape {out.shape}")
+        check(bool(torch.isfinite(out).all()), f"{name} output not finite at stage {stage + 1}")
+        err = float((out - ref).abs().max())
+        kern_ms, plain_ms, runs = timed_pair(
+            torch, lambda: kernel(**args, heads=heads, num_windows=nw),
+            lambda: plain(**args, heads=heads, num_windows=nw), iters=10,
+        )
+        m = batch * nw * n
+        c2 = 24 if name == "swin_block_fused" else 8
+        flops = c2 * m * c * c + 4 * m * n * c
+        nbytes = 4 * (2 * args["x_windows"].numel()
+                      + sum(t.numel() for k, t in args.items() if k != "x_windows"))
+        bound_ms, bound_by = bound(flops, nbytes)
+        print(f"{name} stage {stage + 1} (C {c}, {heads} heads, nW {nw}, "
+              f"{'shifted' if shifted else 'unshifted'}) B={batch}: max_abs_err {err:.3e}, "
+              f"kernel {kern_ms:.4f} ms ({runs[1]:.4f}, {runs[2]:.4f}) plain {plain_ms:.4f} ms "
+              f"({runs[0]:.4f}, {runs[3]:.4f}) bound {bound_ms:.4f} ms ({bound_by}, "
+              f"{flops / 1e9:.2f} GFLOP, {flops / kern_ms / 1e9:.2f} TFLOP/s), "
+              f"{per_forward} per forward")
+        check(err <= SWIN_ATOL, f"{name} vs plain at stage {stage + 1}: {err} > {SWIN_ATOL}")
+        row = summary[name]
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        for key, value in (("ms", kern_ms), ("plain_ms", plain_ms), ("bound_ms", bound_ms),
+                           ("flops", flops), ("bytes", nbytes)):
+            row[key] += per_forward * value
+        row["shapes"].append({"stage": stage + 1, "C": c, "heads": heads, "shifted": shifted,
+                              "per_forward": per_forward, "ms": kern_ms, "plain_ms": plain_ms,
+                              "bound_ms": bound_ms, "max_abs_err": err})
+        del args, out, ref
+    for row in summary.values():
+        row["bound_by"] = bound(row.pop("flops"), row.pop("bytes"))[1]
+    return summary
+
+
+def run_scores(torch, fad, calls, counters, kernel: str, label: str) -> dict:
+    """fad.score for each (name, args, kwargs); each call must raise the count of `kernel`."""
     scores = {}
     for name, args, kwargs in calls:
-        before = counter.LAUNCHES
+        before = counters.read()[kernel]
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         scores[name] = fad.score(*args, **kwargs)
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated()
+        after = counters.read()[kernel]
         print(f"{label} score {name}: {scores[name]!r} in {time.perf_counter() - t0:.3f} s, "
-              f"peak {peak / 2**30:.3f} GiB, LAUNCHES {before} -> {counter.LAUNCHES}")
-        check(counter.LAUNCHES > before, f"{label} score {name} did not launch its kernel")
+              f"peak {peak / 2**30:.3f} GiB, {kernel} launches {before} -> {after}")
+        check(after > before, f"{label} score {name} did not launch {kernel}")
         check(scores[name] != -1 and math.isfinite(scores[name]),
               f"{label} score {name} = {scores[name]}")
     return scores
 
 
-def run_path(torch, fad, calls, kernel, other, label: str):
-    """One path: both launch counts set to 0 just before it and read just
-    after. Returns (scores, this path's launches of its kernel); the other
-    family's kernel must not launch."""
-    kernel.LAUNCHES = other.LAUNCHES = 0
-    scores = run_scores(torch, fad, calls, kernel, label)
-    launches, stray = kernel.LAUNCHES, other.LAUNCHES
-    print(f"{label} path: {launches} launches of its kernel, {stray} of the other")
-    check(stray == 0, f"the {label} path launched the other family's kernel")
-    return scores, launches
+def run_path(torch, fad, calls, counters, kernel: str, label: str):
+    """One path: all four launch counts set to 0 just before it and read just
+    after. Returns (scores, the counts)."""
+    counters.zero()
+    scores = run_scores(torch, fad, calls, counters, kernel, label)
+    counts = counters.read()
+    print(f"{label} path launches: {counts}")
+    return scores, counts
+
+
+def check_only(counts: dict, kernel: str, label: str) -> None:
+    """A VGGish or PANN path launched its own kernel and no other."""
+    stray = {k: v for k, v in counts.items() if k != kernel and v}
+    check(counts[kernel] > 0 and not stray, f"the {label} path launched {counts}")
+
+
+def check_clap_counts(counts: dict, label: str) -> None:
+    """One log-mel launch per chunk, and per chunk 10 swin_block_fused and 2
+    window_attention_fused launches (stages 1-3 and stage 4)."""
+    chunks = counts["fused_pann_logmel"]
+    check(chunks > 0, f"the {label} path launched no log-mel kernel")
+    check(counts["swin_block_fused"] == 10 * chunks,
+          f"{label}: {counts['swin_block_fused']} swin_block_fused launches for {chunks} chunks")
+    check(counts["window_attention_fused"] == 2 * chunks,
+          f"{label}: {counts['window_attention_fused']} window_attention_fused launches "
+          f"for {chunks} chunks")
+    check(counts["fused_vggish_logmel"] == 0, f"the {label} path launched the VGGish kernel")
 
 
 def check_pair_scores(scores: dict, label: str) -> None:
@@ -244,6 +432,16 @@ def card_vs_cpu(np, fad, cpu_fad, clips, sr: int, shape, label: str) -> None:
     check(err <= EMBEDDING_ATOL, f"{label} card vs CPU embeddings {err} > {EMBEDDING_ATOL}")
 
 
+def timed_warmup(torch, fad, label: str, batch: int) -> None:
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    fad.warmup()
+    torch.cuda.synchronize()
+    print(f"{label} warmup ({batch} x 10 s clips, f32 + int16 wire, host + device "
+          f"stats): {time.perf_counter() - t0:.2f} s, "
+          f"peak {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+
+
 def main() -> int:
     import torch
 
@@ -256,14 +454,18 @@ def main() -> int:
 
     import frechet_audio_distance_exported_tpu_torch as port
     from frechet_audio_distance_exported_tpu_torch import FrechetAudioDistance
+    from frechet_audio_distance_exported_tpu_torch.config import set_exact_float32
+    from frechet_audio_distance_exported_tpu_torch.models import clap
     from frechet_audio_distance_exported_tpu_torch.ops import _build, cuda_frontend, cuda_pann_frontend
     from frechet_audio_distance_exported_tpu_torch.ops import frontends as fe
+    from frechet_audio_distance_exported_tpu_torch.ops import window_attn
     from frechet_audio_distance_exported_tpu_torch.pipeline import DEFAULT_FILE_BATCH
     from frechet_audio_distance_exported_tpu_torch.utils import audio_io
 
     check(Path(port.__file__).resolve().is_relative_to(ROOT),
           f"the port must come from this checkout, got {port.__file__}")
     check("jax" not in sys.modules, "jax was imported")
+    counters = Counters(cuda_frontend, cuda_pann_frontend, window_attn)
 
     # 1. The card.
     smi = subprocess.run(
@@ -274,26 +476,28 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
 
-    # 2. Build both kernels from this checkout's sources.
+    # 2. Build every kernel from this checkout's sources.
     build_phase(torch, _build)
 
-    # 3. Each kernel against its plain version at its main path's shapes.
+    # 3. Each kernel against its plain version at its main path's shapes
+    #    (exact float32 on both sides: TF32 off, as the public API sets it).
+    set_exact_float32()
     batch = DEFAULT_FILE_BATCH["cuda"]
-    vggish_err, (vggish_ms, vggish_plain_ms) = vggish_kernel_phase(
-        torch, np, cuda_frontend, fe, batch
-    )
-    pann_err, (pann_ms, pann_plain_ms) = pann_kernel_phase(
-        torch, np, cuda_pann_frontend, fe, batch
-    )
+    vggish = vggish_kernel_phase(torch, np, cuda_frontend, fe, batch)
+    pann = pann_kernel_phase(torch, np, cuda_pann_frontend, fe, batch)
+    swin = swin_kernel_phase(torch, np, window_attn, clap, batch)
 
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
         bg, ev, bg_small, ev_small = write_corpora(tmp, audio_io, np)
-        pair_calls = [
-            ("bg_ev", (bg, ev), {}),
-            ("bg_bg", (bg, bg), {}),
-            ("bg_ev_device_stats", (bg, ev), {"device_stats": True}),
-        ]
+        clap_bg, clap_ev = write_clap_corpora(tmp, audio_io, np)
+
+        def pair_calls(bg_dir, ev_dir):
+            return [
+                ("bg_ev", (bg_dir, ev_dir), {}),
+                ("bg_bg", (bg_dir, bg_dir), {}),
+                ("bg_ev_device_stats", (bg_dir, ev_dir), {"device_stats": True}),
+            ]
 
         def calculator(model, device="cuda"):
             return FrechetAudioDistance(
@@ -301,25 +505,23 @@ def main() -> int:
                 device=device,
             )
 
+        def clips16k():
+            return [audio_io.load_audio(os.path.join(d, f), 16000, 1)
+                    for d, f in ((bg, "sine05.wav"), (ev, "noise05.wav"))]
+
         # 4. The VGGish path through the public API.
         fad = calculator("vggish")
         check(torch.backends.cuda.matmul.allow_tf32 is False, "matmul TF32 is on")
         check(torch.backends.cudnn.allow_tf32 is False, "cuDNN TF32 is on")
         check(fad.pipeline.file_batch == batch, "file_batch is not the CUDA default")
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        fad.warmup()
-        torch.cuda.synchronize()
-        print(f"vggish warmup ({batch} x 10 s clips, f32 + int16 wire, host + device "
-              f"stats): {time.perf_counter() - t0:.2f} s, "
-              f"peak {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
-        scores, vggish_launches = run_path(
-            torch, fad, pair_calls, cuda_frontend, cuda_pann_frontend, "vggish"
+        timed_warmup(torch, fad, "vggish", batch)
+        scores, counts = run_path(
+            torch, fad, pair_calls(bg, ev), counters, "fused_vggish_logmel", "vggish"
         )
+        check_only(counts, "fused_vggish_logmel", "vggish")
+        vggish_launches = counts["fused_vggish_logmel"]
         check_pair_scores(scores, "vggish")
-        clips = [audio_io.load_audio(os.path.join(d, f), 16000, 1)
-                 for d, f in ((bg, "sine05.wav"), (ev, "noise05.wav"))]
-        card_vs_cpu(np, fad, calculator("vggish", "cpu"), clips, 16000, (20, 128), "vggish")
+        card_vs_cpu(np, fad, calculator("vggish", "cpu"), clips16k(), 16000, (20, 128), "vggish")
         del fad
 
         # 5. The PANN paths through the public API: pann-16k on the whole
@@ -328,27 +530,41 @@ def main() -> int:
         #    own with the counts set to 0 just before it.
         fad = calculator("pann-16k")
         check(fad.pipeline.file_batch == batch, "PANN file_batch is not the CUDA default")
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        fad.warmup()
-        torch.cuda.synchronize()
-        print(f"pann-16k warmup ({batch} x 10 s clips, f32 + int16 wire, host + device "
-              f"stats): {time.perf_counter() - t0:.2f} s, "
-              f"peak {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+        timed_warmup(torch, fad, "pann-16k", batch)
         others = {name: calculator(name) for name in ("pann-8k", "pann-32k")}
         pann_launches = {}
-        scores, pann_launches["pann-16k"] = run_path(
-            torch, fad, pair_calls, cuda_pann_frontend, cuda_frontend, "pann-16k"
+        scores, counts = run_path(
+            torch, fad, pair_calls(bg, ev), counters, "fused_pann_logmel", "pann-16k"
         )
+        check_only(counts, "fused_pann_logmel", "pann-16k")
+        pann_launches["pann-16k"] = counts["fused_pann_logmel"]
         check_pair_scores(scores, "pann-16k")
         for name, other in others.items():
-            _, pann_launches[name] = run_path(
-                torch, other, [("bg_ev", (bg_small, ev_small), {})],
-                cuda_pann_frontend, cuda_frontend, name,
-            )
-        clips = [audio_io.load_audio(os.path.join(d, f), 16000, 1)
-                 for d, f in ((bg, "sine05.wav"), (ev, "noise05.wav"))]
-        card_vs_cpu(np, fad, calculator("pann-16k", "cpu"), clips, 16000, (2, 2048), "pann-16k")
+            _, counts = run_path(torch, other, [("bg_ev", (bg_small, ev_small), {})],
+                                 counters, "fused_pann_logmel", name)
+            check_only(counts, "fused_pann_logmel", name)
+            pann_launches[name] = counts["fused_pann_logmel"]
+        card_vs_cpu(np, fad, calculator("pann-16k", "cpu"), clips16k(), 16000, (2, 2048),
+                    "pann-16k")
+        del fad, others
+
+        # 6. The CLAP path through the public API: the 48 kHz corpora (the
+        #    main path), then the 16 kHz part, resampled as it is loaded;
+        #    card vs CPU on the pipeline's own resample path.
+        fad = calculator("clap")
+        check(fad.pipeline.file_batch == batch, "CLAP file_batch is not the CUDA default")
+        timed_warmup(torch, fad, "clap", batch)
+        scores, counts = run_path(
+            torch, fad, pair_calls(clap_bg, clap_ev), counters, "swin_block_fused", "clap"
+        )
+        check_clap_counts(counts, "clap")
+        clap_launches = counts
+        pann_launches["clap"] = counts["fused_pann_logmel"]
+        check_pair_scores(scores, "clap")
+        _, counts = run_path(torch, fad, [("bg_ev", (bg_small, ev_small), {})], counters,
+                             "swin_block_fused", "clap 16 kHz")
+        check_clap_counts(counts, "clap 16 kHz")
+        card_vs_cpu(np, fad, calculator("clap", "cpu"), clips16k(), 16000, (2, 512), "clap")
 
     print(json.dumps({"kernels": [
         {
@@ -357,10 +573,14 @@ def main() -> int:
             "source": "frechet_audio_distance_exported_tpu_torch/csrc/vggish_logmel.cu",
             "replaces": "frechet_audio_distance_exported_tpu/ops/pallas_frontend.py:83",
             "launches": vggish_launches,
-            "max_abs_err": vggish_err,
+            "max_abs_err": vggish["max_abs_err"],
             "err_of": "log-mel, absolute",
-            "ms": vggish_ms,
-            "plain_ms": vggish_plain_ms,
+            "ms": vggish["ms"],
+            "plain_ms": vggish["plain_ms"],
+            "bound_ms": vggish["bound_ms"],
+            "bound_by": vggish["bound_by"],
+            "library_ms": None,
+            "at": "64 files x 960 frames",
         },
         {
             "name": "fused_pann_logmel",
@@ -369,11 +589,32 @@ def main() -> int:
             "replaces": "frechet_audio_distance_exported_tpu/ops/pallas_frontend.py:185",
             "launches": pann_launches["pann-16k"],
             "launches_by_path": pann_launches,
-            "max_abs_err": pann_err,
+            "max_abs_err": pann["max_abs_err"],
             "err_of": "linear mel power, relative to each file's largest",
-            "ms": pann_ms,
-            "plain_ms": pann_plain_ms,
+            **pann["rows"][16000],
+            "library_ms": None,
+            "at": "pann-16k, 64 files x 1032 frames",
+            "by_rate": pann["rows"],
         },
+        *(
+            {
+                "name": name,
+                "route": "cuda",
+                "source": "frechet_audio_distance_exported_tpu_torch/csrc/window_attn.cu",
+                "replaces": f"frechet_audio_distance_exported_tpu/ops/pallas_window_attn.py:{line}",
+                "launches": clap_launches[name],
+                "max_abs_err": swin[name]["max_abs_err"],
+                "err_of": "block output, absolute",
+                "ms": swin[name]["ms"],
+                "plain_ms": swin[name]["plain_ms"],
+                "bound_ms": swin[name]["bound_ms"],
+                "bound_by": swin[name]["bound_by"],
+                "library_ms": None,
+                "at": "one 64-clip CLAP chunk: every launch of a forward",
+                "shapes": swin[name]["shapes"],
+            }
+            for name, line in (("swin_block_fused", 152), ("window_attention_fused", 217))
+        ),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -5,7 +5,7 @@ constructor kwargs (minus ``mesh``, plus ``device``), the same methods
 (score / get_embeddings / _get_embedding_for_audio /
 calculate_embd_statistics / calculate_frechet_distance / _load_audio_files /
 warmup), the same -1 error sentinel and .npy embedding caches. The port
-runs VGGish and PANN (pann-8k/16k/32k); CLAP and Encodec raise
+runs VGGish, PANN (pann-8k/16k/32k) and CLAP; Encodec raises
 NotImplementedError.
 """
 
@@ -19,6 +19,7 @@ import torch
 
 from . import registry
 from .config import resolve_device, set_exact_float32
+from .models.clap import CLAP
 from .models.pann import PANN
 from .models.vggish import VGGish
 from .ops import stats as stats_ops
@@ -66,8 +67,8 @@ class FrechetAudioDistance:
         Args (reference-compatible):
             ckpt_dir: folder of weight bundles (.npz). Defaults to the JAX
                 package's cache dir (FAD_TPU_CKPT_DIR overrides).
-            model_name: one of VALID_MODELS; the port runs 'vggish' and
-                'pann-8k' / 'pann-16k' / 'pann-32k'.
+            model_name: one of VALID_MODELS; the port runs 'vggish',
+                'pann-8k' / 'pann-16k' / 'pann-32k' and 'clap'.
             sample_rate: must equal the model default or be None.
             channels: number of channels (1 for mono).
             verbose: progress printing.
@@ -117,7 +118,7 @@ class FrechetAudioDistance:
         )
         family = registry.ported_model_config(self.model_name).family
         with torch.device("meta"):  # no throwaway init of the full-size weights
-            model = PANN() if family == "pann" else VGGish()
+            model = {"vggish": VGGish, "pann": PANN, "clap": CLAP}[family]()
         model.load_state_dict(state, assign=True)
         self.model = model.to(self.device).eval()
         self.pipeline = EmbeddingPipeline(
@@ -135,7 +136,7 @@ class FrechetAudioDistance:
 
     def get_embeddings(self, x: List[np.ndarray], sr: int) -> np.ndarray:
         """Embeddings for a list of audio arrays, concatenated over files
-        (VGGish: one row per 0.96 s patch; PANN: one row per file)."""
+        (VGGish: one row per 0.96 s patch; PANN and CLAP: one row per file)."""
         per_file = self.pipeline.embed_files(x, sr, strict=False)
         embd_lst = [e for e in per_file if e is not None]
         if not embd_lst:

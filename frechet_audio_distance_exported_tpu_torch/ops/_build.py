@@ -130,4 +130,44 @@ def load_library() -> ctypes.CDLL:
         ctypes.c_void_p,  # cudaStream_t
     ]
     lib.pann_logmel_launch.restype = ctypes.c_int
+    attention_args = [
+        ctypes.c_void_p,  # x
+        ctypes.c_void_p,  # w_qkv
+        ctypes.c_void_p,  # b_qkv
+        ctypes.c_void_p,  # w_proj
+        ctypes.c_void_p,  # b_proj
+        ctypes.c_void_p,  # bias
+        ctypes.c_void_p,  # mask
+        ctypes.c_int,  # mask_count
+        ctypes.c_void_p,  # gamma1
+        ctypes.c_void_p,  # beta1
+    ]
+    lib.window_attention_launch.argtypes = [
+        *attention_args,
+        ctypes.c_void_p,  # attn scratch
+        ctypes.c_void_p,  # out
+        ctypes.c_int,  # windows (BW)
+        ctypes.c_int,  # C
+        ctypes.c_int,  # heads
+        ctypes.c_void_p,  # cudaStream_t
+    ]
+    lib.window_attention_launch.restype = ctypes.c_int
+    lib.swin_block_launch.argtypes = [
+        *attention_args,
+        ctypes.c_void_p,  # gamma2
+        ctypes.c_void_p,  # beta2
+        ctypes.c_void_p,  # w_fc1
+        ctypes.c_void_p,  # b_fc1
+        ctypes.c_void_p,  # w_fc2
+        ctypes.c_void_p,  # b_fc2
+        ctypes.c_void_p,  # attn scratch
+        ctypes.c_void_p,  # x2 scratch
+        ctypes.c_void_p,  # hidden scratch
+        ctypes.c_void_p,  # out
+        ctypes.c_int,  # windows (BW)
+        ctypes.c_int,  # C
+        ctypes.c_int,  # heads
+        ctypes.c_void_p,  # cudaStream_t
+    ]
+    lib.swin_block_launch.restype = ctypes.c_int
     return lib

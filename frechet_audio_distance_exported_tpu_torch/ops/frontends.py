@@ -1,4 +1,4 @@
-"""Batched audio frontends (torch) for the VGGish and PANN families.
+"""Batched audio frontends (torch) for the VGGish, PANN and CLAP families.
 
 Counterpart of frechet_audio_distance_exported_tpu/ops/frontends.py:
 - VGGish: mono 16 kHz -> 25 ms / 10 ms periodic-Hann STFT magnitude
@@ -8,6 +8,8 @@ Counterpart of frechet_audio_distance_exported_tpu/ops/frontends.py:
   STFT power -> Slaney mel (64 bins) -> 10*log10(max(mel, 1e-10)), with the
   rows past each file's frame count set to 0 (the reference's zero pad onto
   the 32k-24 time grid).
+- CLAP: the PANN log-mel at 48 kHz (n_fft 1024, hop 480), 1001 frames, on
+  a wave zero-padded to 10 s and quantized to the k/32767 grid on the host.
 
 The host only decodes, resamples and applies PANN's small reflect pad; the
 frontend runs on the device with per-file frame counts kept out of the
@@ -41,6 +43,11 @@ PANN_CONFIGS = {
     32000: {"sample_rate": 32000, "window_size": 1024, "hop_size": 320, "mel_bins": 64, "fmin": 50, "fmax": 14000},
     48000: {"sample_rate": 48000, "window_size": 1024, "hop_size": 480, "mel_bins": 64, "fmin": 50, "fmax": 14000},
 }
+
+# CLAP constants (JAX ops/frontends.py L57-61).
+CLAP_SAMPLE_RATE = 48000
+CLAP_MAX_SAMPLES = 10 * CLAP_SAMPLE_RATE  # 480000
+CLAP_TIME_FRAMES = 1001
 
 
 def vggish_num_frames(num_samples: int) -> int:
@@ -130,4 +137,14 @@ def pann_logmel_batch(
         n_valid_frames,
         target_sample_rate,
         num_frames,
+    )
+
+
+def clap_logmel_batch(padded_wave: torch.Tensor, n_valid_frames: torch.Tensor) -> torch.Tensor:
+    """Quantized, reflect-padded [B, L] -> [B, 1001, 64] (JAX ops/frontends.py
+    L352-364). The caller zero-pads the waveform to 10 s before the reflect
+    pad (a mel of zeros is not zeros); int16 input dequantizes on CLAP's
+    k/32767 grid."""
+    return pann_logmel_batch(
+        padded_wave, CLAP_SAMPLE_RATE, CLAP_TIME_FRAMES, n_valid_frames, 32767.0
     )

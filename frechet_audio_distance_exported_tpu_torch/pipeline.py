@@ -1,4 +1,4 @@
-"""Batched embedding pipeline (VGGish, PANN) on torch tensors.
+"""Batched embedding pipeline (VGGish, PANN, CLAP) on torch tensors.
 
 Counterpart of frechet_audio_distance_exported_tpu/pipeline.py. The host
 decodes, mono-mixes, resamples and applies PANN's reflect pad; waveforms are
@@ -13,6 +13,9 @@ on the device. Planning rules, each part of the reference numerics:
   file's frame count are zeroed in the frontend. Files on different grids
   never share a program: the grid length feeds global pooling and shows in
   the embedding. One row per file.
+- CLAP: every file is truncated or zero-padded towards 10 s at 48 kHz and
+  quantized to the k/32767 grid on the host; files group by buffer length
+  and each runs 1001 log-mel frames. One row per file.
 Row order of the concatenated embedding matrix is files in input order,
 patches in time order within a file.
 """
@@ -197,6 +200,8 @@ class EmbeddingPipeline:
         with torch.inference_mode():
             if self.cfg.family == "vggish":
                 return self._embed_vggish(audio_list, sr, strict, sink)
+            if self.cfg.family == "clap":
+                return self._embed_clap(audio_list, sr, strict, sink)
             return self._embed_pann(audio_list, sr, strict, sink)
 
     def embed_single(self, audio: np.ndarray, sr: int) -> np.ndarray:
@@ -411,6 +416,50 @@ class EmbeddingPipeline:
             # The 32k-24 grid shows in the embedding: never mix grids.
             group_key_fn=lambda item: fe.pann_valid_time(item[1]),
             plan_fn=lambda t_grid: (t_grid * hop + n_fft, target_sr, t_grid),
+        )
+
+    def _clap_prep(self, data: np.ndarray, sr: int):
+        """One file's host steps (JAX pipeline.py:815-862), in the JAX
+        package's order; each one shows in the embedding. Returns the
+        reflect-padded wave (int16 on the k/32767 grid where it is exact)
+        and its frame count."""
+        n_fft = fe.PANN_CONFIGS[fe.CLAP_SAMPLE_RATE]["window_size"]
+        hop = fe.PANN_CONFIGS[fe.CLAP_SAMPLE_RATE]["hop_size"]
+        if data.ndim > 1:
+            data = np.mean(data, axis=1)
+        # Frames 0..1000 of the centered STFT read only samples below
+        # (1001 + 2) * hop, so a longer file is truncated there; when
+        # resampling, 4096 source samples of margin keep the resampler's
+        # finite support inside the kept prefix.
+        need = (fe.CLAP_TIME_FRAMES + 2) * hop
+        if sr != fe.CLAP_SAMPLE_RATE:
+            need = int(np.ceil(need * sr / fe.CLAP_SAMPLE_RATE)) + 4096
+        if len(data) > need:
+            data = data[:need]
+        # The waveform is zero-padded to 10 s before the mel, capped at the
+        # read window.
+        pad_target = min(fe.CLAP_MAX_SAMPLES, need)
+        if len(data) < pad_target:
+            data = np.pad(data, (0, pad_target - len(data)))
+        data = data.astype(np.float32)
+        # The int16 round trip CLAP was trained with: numpy's cast, which
+        # truncates toward zero; then the resample.
+        data = (data * 32767.0).astype(np.int16).astype(np.float32) / 32767.0
+        if sr != fe.CLAP_SAMPLE_RATE:
+            data = resample(data, sr, fe.CLAP_SAMPLE_RATE).astype(np.float32)
+        n_valid = min(fe.CLAP_TIME_FRAMES, fe.pann_num_frames(len(data), hop))
+        padded = fe.reflect_pad_host(data, n_fft)
+        q = as_int16_exact(padded, 32767.0)
+        return (padded if q is None else q), n_valid
+
+    def _embed_clap(self, audio_list, sr, strict, sink=None):
+        """JAX pipeline.py:812-870: one row per file, grouped by buffer length."""
+        return self._embed_mel_cnn(
+            audio_list, strict, sink,
+            prep_fn=lambda data: self._clap_prep(data, sr),
+            group_key_fn=lambda item: bucket_len(len(item[0])),
+            plan_fn=lambda s_bucket: (s_bucket, fe.CLAP_SAMPLE_RATE, fe.CLAP_TIME_FRAMES),
+            i16_full_scale=32767.0,
         )
 
     def _log_skip(self, e: Exception) -> None:

@@ -77,7 +77,7 @@ def get_model_config(model_name: str) -> ModelConfig:
 
 
 # The model names this package runs so far; the others wait in ROADMAP.md Queue 1.
-PORTED_MODELS = ("vggish", "pann-8k", "pann-16k", "pann-32k")
+PORTED_MODELS = ("vggish", "pann-8k", "pann-16k", "pann-32k", "clap")
 
 
 def ported_model_config(model_name: str) -> ModelConfig:

@@ -5,10 +5,14 @@ The bundles are the ones frechet_audio_distance_exported_tpu/utils/weights.py
 the JAX pytrees
 - VGGish: {"features": [{"w": HWIO, "b"}] x 6, "embeddings": [{"w": [in, out], "b"}] x 3};
 - PANN:   {"bn0": {gamma, beta, mean, var}, "blocks": [{"conv1": {"w"}, "bn1",
-           "conv2": {"w"}, "bn2"}] x 6, "fc1": {"w", "b"}}.
-Layouts are converted once, here: convolution HWIO -> OIHW, linear
-[in, out] -> [out, in], BatchNorm (gamma, beta, mean, var) -> (weight,
-bias, running_mean, running_var).
+           "conv2": {"w"}, "bn2"}] x 6, "fc1": {"w", "b"}};
+- CLAP:   {"bn0", "patch_embed": {"conv", "norm"}, "stages": [{"blocks": [...],
+           "downsample"}] x 4, "norm", "projection"} (JAX models/clap.py:428-490).
+Layouts are converted once, here. VGGish and PANN: convolution HWIO -> OIHW,
+linear [in, out] -> [out, in], BatchNorm (gamma, beta, mean, var) ->
+(weight, bias, running_mean, running_var). CLAP keeps the JAX tree: its
+state_dict keys are the flat keys with "." for "/", and only the patch-embed
+convolution turns HWIO -> OIHW.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ import numpy as np
 import torch
 
 from .. import registry
+from ..models.clap import CLAP
 from ..models.pann import BLOCK_CHANNELS
 from ..models.vggish import CONV_CFG, FC_DIMS
 
@@ -61,19 +66,44 @@ def _pann_state(tree: Mapping) -> Dict[str, torch.Tensor]:
     return state
 
 
+def _clap_state(tree: Mapping) -> Dict[str, torch.Tensor]:
+    state = {}
+
+    def walk(node, prefix):
+        if isinstance(node, Mapping):
+            items = node.items()
+        elif isinstance(node, (list, tuple)):
+            items = enumerate(node)
+        else:
+            state[prefix] = _f32(node)
+            return
+        for key, child in items:
+            walk(child, f"{prefix}.{key}" if prefix else str(key))
+
+    walk(tree, "")
+    conv_w = np.asarray(tree["patch_embed"]["conv"]["w"])
+    state["patch_embed.conv.w"] = _f32(conv_w.transpose(3, 2, 0, 1))  # HWIO -> OIHW
+    return state
+
+
 def family_of_tree(tree: Mapping) -> str:
-    """'vggish' or 'pann', from the pytree's top-level keys."""
+    """'vggish', 'pann' or 'clap', from the pytree's top-level keys."""
     if "features" in tree and "embeddings" in tree:
         return "vggish"
+    if "patch_embed" in tree and "stages" in tree and "projection" in tree:
+        return "clap"
     if "blocks" in tree and "bn0" in tree:
         return "pann"
-    raise ValueError(f"not a VGGish or PANN parameter tree (keys {sorted(tree)})")
+    raise ValueError(f"not a VGGish, PANN or CLAP parameter tree (keys {sorted(tree)})")
 
 
 def params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
-    """JAX VGGish or PANN pytree of arrays -> the module's state_dict (float32, CPU)."""
-    if family_of_tree(tree) == "vggish":
+    """JAX VGGish, PANN or CLAP pytree of arrays -> the module's state_dict (float32, CPU)."""
+    family = family_of_tree(tree)
+    if family == "vggish":
         return _vggish_state(tree)
+    if family == "clap":
+        return _clap_state(tree)
     return _pann_state(tree)
 
 
@@ -100,7 +130,7 @@ def _unflatten(flat: Mapping[str, np.ndarray]):
 
 
 def load_weights(path: str, family: str = None) -> Dict[str, torch.Tensor]:
-    """A VGGish or PANN .npz bundle -> state_dict. With ``family`` given, a
+    """A VGGish, PANN or CLAP .npz bundle -> state_dict. With ``family`` given, a
     bundle of another family raises ValueError."""
     with np.load(path) as data:
         tree = _unflatten({k: data[k] for k in data.files})
@@ -110,12 +140,35 @@ def load_weights(path: str, family: str = None) -> Dict[str, torch.Tensor]:
     return params_from_jax(tree)
 
 
+def _clap_random(gen: torch.Generator) -> Dict[str, torch.Tensor]:
+    """As the JAX initializer (models/clap.py:424-490): weights and the
+    relative-position tables trunc-normal with std 0.02 cut at 2 std, biases
+    zero, LayerNorms and bn0 the identity."""
+    with torch.device("meta"):
+        shapes = {k: tuple(v.shape) for k, v in CLAP().state_dict().items()}
+    state = {}
+    for key, shape in shapes.items():
+        leaf = key.rsplit(".", 1)[-1]
+        if leaf in ("gamma", "var"):
+            state[key] = torch.ones(shape)
+        elif leaf in ("beta", "mean", "b"):
+            state[key] = torch.zeros(shape)
+        else:  # "w" and "rel_bias"
+            state[key] = torch.nn.init.trunc_normal_(
+                torch.empty(shape), std=0.02, a=-0.04, b=0.04, generator=gen
+            )
+    return state
+
+
 def init_random_params(model_name: str, seed: int = 0) -> Dict[str, torch.Tensor]:
-    """Torch-default-like uniform(±1/sqrt(fan_in)) weights from an explicit
-    generator, BatchNorm as the identity like the JAX initializer
-    (models/common.py:194). Not the JAX package's bits."""
+    """Weights from an explicit generator; not the JAX package's bits. VGGish
+    and PANN: torch-default-like uniform(±1/sqrt(fan_in)), BatchNorm as the
+    identity like the JAX initializer (models/common.py:194). CLAP: as
+    _clap_random."""
     family = registry.ported_model_config(model_name).family
     gen = torch.Generator().manual_seed(seed)
+    if family == "clap":
+        return _clap_random(gen)
 
     def uniform(shape, fan_in):
         bound = float(np.sqrt(1.0 / fan_in))

@@ -1,6 +1,6 @@
 """On-card measurements of the PyTorch/CUDA port's fused embed+stats path.
 
-    python3 port_measure.py [--models pann-16k,vggish] [--clips 256]
+    python3 port_measure.py [--models pann-16k,vggish,clap] [--clips 256]
                             [--batches 16,32,64,128] [--out-dir measure_out]
 
 Needs one CUDA card; imports nothing of JAX. For each model, at full width
@@ -12,10 +12,12 @@ score(..., device_stats=True) runs:
   the order given and then in reverse, each after one warm-up pass;
 - profile: one pass at the CUDA default file_batch under torch.profiler:
   the device-busy share (the union of device kernel and copy intervals over
-  the pass's wall) and device time per kernel name;
-- split (PANN models): the same pass's host preparation (reflect pad,
-  as_int16_exact, _pack_wave), host-to-device copies and device steps on
-  chunks already on the card, each timed alone;
+  the pass's wall), device time per kernel name, and the four kernels'
+  launch counts over the pass;
+- split (PANN and CLAP): the same pass's host preparation (PANN: reflect
+  pad, as_int16_exact; CLAP: the pipeline's _clap_prep, which adds the
+  10 s pad and the int16 round trip; both then _pack_wave), host-to-device
+  copies and device steps on chunks already on the card, each timed alone;
 - cprofile: one pass under cProfile, the host functions with most own time.
 It also times the kernels' build: ops/_build.build() (one nvcc per source,
 in parallel, then a link) against one nvcc call for all sources.
@@ -116,33 +118,24 @@ def host_profile(run, top: int = 15) -> list:
     ]
 
 
-def pann_split(torch, np, pipeline_mod, fe, pipe, clips) -> dict:
+def mel_split(torch, np, pipeline_mod, pipe, clips, prep, target_sr, full_scale) -> dict:
     """Host preparation, host-to-device copies and device steps of one
-    accumulate_stats pass over uniform clips, each timed alone. It follows
-    EmbeddingPipeline._embed_pann for clips at the model's rate that share
-    one grid."""
-    cfg = pipe.cfg
-    target_sr = cfg.sample_rate
-    n_fft = fe.PANN_CONFIGS[target_sr]["window_size"]
-    hop = fe.PANN_CONFIGS[target_sr]["hop_size"]
-    t_i = fe.pann_num_frames(len(clips[0]), hop)
-    t_grid = fe.pann_valid_time(t_i)
-    length = t_grid * hop + n_fft
-    b_cap = min(pipe.file_batch, max(1, (pipe.file_batch * 1032) // t_grid))
+    accumulate_stats pass over uniform clips at the model's rate, each timed
+    alone. It follows EmbeddingPipeline._embed_mel_cnn for clips that share
+    one program shape; prep(clip) -> (wave row, frame count, buffer length,
+    frames of the program)."""
+    _, _, length, num_frames = prep(clips[0])
+    b_cap = min(pipe.file_batch, max(1, (pipe.file_batch * 1032) // num_frames))
 
     def prepare():
         packed = []
         for c0 in range(0, len(clips), b_cap):
-            chunk = clips[c0 : c0 + b_cap]
-            rows = []
-            for data in chunk:
-                padded = fe.reflect_pad_host(data, n_fft)
-                q = pipeline_mod.as_int16_exact(padded)
-                rows.append(padded if q is None else q)
-            b = pipeline_mod.bucket_batch(len(chunk), b_cap)
+            items = [prep(data) for data in clips[c0 : c0 + b_cap]]
+            b = pipeline_mod.bucket_batch(len(items), b_cap)
             n_valid = np.zeros((b,), np.int32)
-            n_valid[: len(chunk)] = t_i
-            packed.append((pipeline_mod._pack_wave(rows, b, length), n_valid, len(chunk)))
+            n_valid[: len(items)] = [frames for _, frames, _, _ in items]
+            wave = pipeline_mod._pack_wave([row for row, _, _, _ in items], b, length, full_scale)
+            packed.append((wave, n_valid, len(items)))
         return packed
 
     t0 = time.perf_counter()
@@ -157,7 +150,7 @@ def pann_split(torch, np, pipeline_mod, fe, pipe, clips) -> dict:
         state = None
         for wave, n_valid, n_live in on_card:
             state = pipeline_mod._fused_mel_cnn_stats_step(
-                pipe.model, wave, n_valid, n_live, state, target_sr, t_grid, 32768.0
+                pipe.model, wave, n_valid, n_live, state, target_sr, num_frames, full_scale
             )
 
     with torch.inference_mode():
@@ -167,10 +160,36 @@ def pann_split(torch, np, pipeline_mod, fe, pipe, clips) -> dict:
             "chunks": len(packed), "wire": str(packed[0][0].dtype)}
 
 
+def pann_prep(pipeline_mod, fe, target_sr):
+    """_embed_pann's steps for a clip at the model's rate: reflect pad, int16 check."""
+    n_fft = fe.PANN_CONFIGS[target_sr]["window_size"]
+    hop = fe.PANN_CONFIGS[target_sr]["hop_size"]
+
+    def prep(data):
+        t_i = fe.pann_num_frames(len(data), hop)
+        t_grid = fe.pann_valid_time(t_i)
+        padded = fe.reflect_pad_host(data, n_fft)
+        q = pipeline_mod.as_int16_exact(padded)
+        return (padded if q is None else q), t_i, t_grid * hop + n_fft, t_grid
+
+    return prep
+
+
+def clap_prep(pipeline_mod, fe, pipe):
+    """_embed_clap's steps: the pipeline's own _clap_prep, and its length bucket."""
+
+    def prep(data):
+        row, n_valid = pipe._clap_prep(data, fe.CLAP_SAMPLE_RATE)
+        return row, n_valid, pipeline_mod.bucket_len(len(row)), fe.CLAP_TIME_FRAMES
+
+    return prep
+
+
 def measure_model(torch, np, port, model_name: str, n_clips: int, batches, tmp) -> dict:
     from frechet_audio_distance_exported_tpu_torch import pipeline as pipeline_mod
     from frechet_audio_distance_exported_tpu_torch.ops import cuda_frontend, cuda_pann_frontend
     from frechet_audio_distance_exported_tpu_torch.ops import frontends as fe
+    from frechet_audio_distance_exported_tpu_torch.ops import window_attn
 
     fad = port.FrechetAudioDistance(
         model_name=model_name, weights="random", seed=SEED, ckpt_dir=tmp, device="cuda"
@@ -183,7 +202,16 @@ def measure_model(torch, np, port, model_name: str, n_clips: int, batches, tmp) 
         for _ in range(n_clips)
     ]
     audio_min = n_clips * CLIP_SECONDS / 60.0
-    kernel = cuda_pann_frontend if fad.pipeline.cfg.family == "pann" else cuda_frontend
+    family = fad.pipeline.cfg.family
+
+    def zero_launches():
+        cuda_frontend.LAUNCHES = cuda_pann_frontend.LAUNCHES = 0
+        for name in window_attn.LAUNCHES:
+            window_attn.LAUNCHES[name] = 0
+
+    def read_launches():
+        return {"fused_vggish_logmel": cuda_frontend.LAUNCHES,
+                "fused_pann_logmel": cuda_pann_frontend.LAUNCHES, **window_attn.LAUNCHES}
 
     def pipe_for(fb):
         return pipeline_mod.EmbeddingPipeline(model_name, fad.model, fad.device, file_batch=fb)
@@ -206,18 +234,22 @@ def measure_model(torch, np, port, model_name: str, n_clips: int, batches, tmp) 
     default = pipe_for(None)
     run = pass_of(default)
     run()
-    kernel.LAUNCHES = 0
+    zero_launches()
     prof = device_profile(torch, run)
     prof["file_batch"] = default.file_batch
-    prof["kernel_launches"] = kernel.LAUNCHES
+    prof["kernel_launches"] = read_launches()
     print(f"{model_name} profile at file_batch {default.file_batch}: wall "
           f"{prof['wall_ms']:.1f} ms, device busy {prof['device_busy_ms']:.1f} ms "
           f"({100 * prof['busy_share']:.1f} %)")
     for row in prof["kernels"][:8]:
         print(f"  {row['ms']:9.3f} ms  x{row['count']:<4d} {row['name'][:110]}")
     out = {"clips": n_clips, "clip_seconds": CLIP_SECONDS, "sweep": sweep, "profile": prof}
-    if fad.pipeline.cfg.family == "pann":
-        out["split"] = pann_split(torch, np, pipeline_mod, fe, default, clips)
+    if family in ("pann", "clap"):
+        if family == "pann":
+            prep, full_scale = pann_prep(pipeline_mod, fe, sr), 32768.0
+        else:
+            prep, full_scale = clap_prep(pipeline_mod, fe, default), 32767.0
+        out["split"] = mel_split(torch, np, pipeline_mod, default, clips, prep, sr, full_scale)
         out["split"]["whole_pass_ms"] = synced_seconds(torch, run) * 1e3
         print(f"{model_name} split: {out['split']}")
     out["cprofile"] = host_profile(run)

@@ -91,4 +91,4 @@ def test_get_params_modes(jax_params, tmp_path):
     with pytest.raises(ValueError, match="weights"):
         weights.get_params("vggish", str(tmp_path), weights="download")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        weights.get_params("clap", str(tmp_path), weights="random")
+        weights.get_params("encodec-24k", str(tmp_path), weights="random")

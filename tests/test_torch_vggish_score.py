@@ -136,7 +136,7 @@ def test_constructor_errors(corpora, monkeypatch):
     with pytest.raises(ValueError, match="Unknown model"):
         FrechetAudioDistance(model_name="vggish2", ckpt_dir=ck, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        FrechetAudioDistance(model_name="clap", ckpt_dir=ck, device="cpu")
+        FrechetAudioDistance(model_name="encodec-24k", ckpt_dir=ck, device="cpu")
     with pytest.raises(ValueError, match="sample_rate"):
         FrechetAudioDistance(model_name="vggish", sample_rate=8000, ckpt_dir=ck, device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
