@@ -63,8 +63,8 @@ DEVICE_STATS_RTOL = 1e-3
 SWIN_ATOL = 1e-4
 CLAP_CLIPS = 16  # per corpus, 10 s at 48 kHz
 CLAP_LONG_SECONDS = 12.0  # past CLAP's 10 s: truncated to the 1001-frame read window
-# The least time of the H100 SXM (on-chip-measurement guide): float32 outside
-# the tensor cores, and device memory.
+# The peak rates of the H100 SXM: float32 outside the tensor cores, and
+# device memory.
 F32_FLOPS = 67e12
 HBM_BYTES_PER_S = 3.35e12
 
