@@ -76,22 +76,15 @@ def bound(flops: float, nbytes: float):
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
-class Counters:
-    """The four kernels' launch counts, set to 0 and read together."""
-
-    def __init__(self, cuda_frontend, cuda_pann_frontend, window_attn):
-        self.frontends = {"fused_vggish_logmel": cuda_frontend,
-                          "fused_pann_logmel": cuda_pann_frontend}
-        self.window_attn = window_attn
-
-    def zero(self) -> None:
-        for module in self.frontends.values():
-            module.LAUNCHES = 0
-        for name in self.window_attn.LAUNCHES:
-            self.window_attn.LAUNCHES[name] = 0
-
-    def read(self) -> dict:
-        return {**{k: m.LAUNCHES for k, m in self.frontends.items()}, **self.window_attn.LAUNCHES}
+def logmel_flops(np, frames: int, window: int, n_fft: int, mel, magnitude: bool) -> float:
+    """Operations of an FFT-based log-mel over the frames it needs: per frame
+    the window product, a real FFT of n_fft points (2.5 n log2 n), the power
+    of each bin (3; 4 with the square root of a magnitude), 2 for each
+    nonzero mel tap, and the log of each mel bin."""
+    bins = n_fft // 2 + 1
+    per_frame = (window + 2.5 * n_fft * math.log2(n_fft) + (4 if magnitude else 3) * bins
+                 + 2 * int(np.count_nonzero(mel)) + mel.shape[1])
+    return frames * per_frame
 
 
 def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
@@ -185,12 +178,13 @@ def vggish_kernel_phase(torch, np, cuda_frontend, fe, batch: int) -> dict:
     """VGGish kernel vs plain at B = the CUDA default file_batch, T = 960
     frames (10 s clips, in their length bucket of 163840 samples), and a
     ragged T whose wave ends inside the last frame. Returns the 960-frame
-    numbers, with its bound: per frame a [400] x [400, 257] (cos, sin) DFT
-    and a [257] x [257, 64] mel product."""
+    numbers, with its bound: logmel_flops with a 512-point FFT of a 400-sample
+    frame and the HTK mel's nonzero taps, and as bytes the samples the frames
+    read and the log-mel written."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED)
     shapes = [(960, 163840), (RAGGED_FRAMES, (RAGGED_FRAMES - 1) * fe.VGGISH_HOP + 300)]
-    bins = fe.VGGISH_FFT // 2 + 1
+    mel = cuda_frontend._htk_mel_np()
     max_err = 0.0
     rows = {}
     for num_frames, num_samples in shapes:
@@ -207,14 +201,16 @@ def vggish_kernel_phase(torch, np, cuda_frontend, fe, batch: int) -> dict:
             lambda: cuda_frontend.fused_vggish_logmel(wave, num_frames),
             lambda: cuda_frontend.fused_vggish_logmel_reference(wave, num_frames),
         )
-        flops = batch * num_frames * (2 * 2 * fe.VGGISH_WINDOW * bins + 2 * bins * 64)
-        nbytes = 4 * (wave.numel() + out.numel() + fe.VGGISH_WINDOW * bins * 2 + bins * 64)
+        flops = logmel_flops(np, batch * num_frames, fe.VGGISH_WINDOW, fe.VGGISH_FFT, mel, True)
+        read = min(num_samples, (num_frames - 1) * fe.VGGISH_HOP + fe.VGGISH_WINDOW)
+        nbytes = 4 * (batch * read + out.numel())
         bound_ms, bound_by = bound(flops, nbytes)
         rows[num_frames] = {"ms": kern, "plain_ms": plain, "bound_ms": bound_ms,
                             "bound_by": bound_by}
         print(f"vggish logmel B={batch} T={num_frames} S={num_samples}: max_abs_err {err:.3e} "
               f"kernel {kern:.4f} ms ({runs[1]:.4f}, {runs[2]:.4f}) "
-              f"plain {plain:.4f} ms ({runs[0]:.4f}, {runs[3]:.4f}) bound {bound_ms:.4f} ms")
+              f"plain {plain:.4f} ms ({runs[0]:.4f}, {runs[3]:.4f}) bound {bound_ms:.4f} ms "
+              f"({bound_by}: {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.1f} MB)")
     check(max_err <= LOGMEL_ATOL, f"VGGish kernel vs plain log-mel {max_err} > {LOGMEL_ATOL}")
     return {"max_abs_err": max_err, **rows[960]}
 
@@ -224,16 +220,16 @@ def pann_kernel_phase(torch, np, cuda_pann_frontend, fe, batch: int) -> dict:
     file_batch, T = 1032 (10 s clips on their grid; the buffer is the grid's
     t*hop + n_fft samples) and T = 1001 at 48 kHz, with a ragged n_valid on
     some rows and one row of batch padding (n_valid 0). Returns the worst
-    error and each geometry's numbers; the bound counts the frames below
-    n_valid (the kernel skips tiles past it), each a [n_fft] x [n_fft,
-    n_fft/2+1] (cos, sin) DFT and a mel product."""
+    error and each geometry's numbers. The bound counts the frames below
+    n_valid (the kernel skips tiles past it) in logmel_flops, with an n_fft
+    FFT and the Slaney mel's nonzero taps, and as bytes the samples those
+    frames read, n_valid and the whole log-mel written."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     worst, rows = 0.0, {}
     for sr in sorted(fe.PANN_CONFIGS):
         cfg = fe.PANN_CONFIGS[sr]
         n_fft, hop = cfg["window_size"], cfg["hop_size"]
-        bins = n_fft // 2 + 1
         num_frames = 1001 if sr == 48000 else 1032
         wave = torch.randn((batch, num_frames * hop + n_fft), generator=gen, device=dev) * 0.1
         nv = np.full((batch,), num_frames, np.int32)
@@ -259,29 +255,35 @@ def pann_kernel_phase(torch, np, cuda_pann_frontend, fe, batch: int) -> dict:
             lambda: cuda_pann_frontend.fused_pann_logmel(wave, n_valid, sr, num_frames),
             lambda: cuda_pann_frontend.fused_pann_logmel_reference(wave, n_valid, sr, num_frames),
         )
-        flops = int(nv.sum()) * (2 * 2 * n_fft * bins + 2 * bins * 64)
-        nbytes = 4 * (wave.numel() + batch + out.numel() + n_fft * bins * 2 + bins * 64)
+        mel = cuda_pann_frontend._slaney_mel_np(sr)
+        flops = logmel_flops(np, int(nv.sum()), n_fft, n_fft, mel, False)
+        read = sum(min(wave.shape[1], (int(v) - 1) * hop + n_fft) for v in nv if v)
+        nbytes = 4 * (read + batch + out.numel())
         bound_ms, bound_by = bound(flops, nbytes)
         rows[sr] = {"ms": kern, "plain_ms": plain, "bound_ms": bound_ms, "bound_by": bound_by}
         print(f"pann logmel {sr} Hz (n_fft {n_fft}, hop {hop}) B={batch} T={num_frames}: "
               f"max power err / file max {err:.3e}, kernel {kern:.4f} ms "
               f"({runs[1]:.4f}, {runs[2]:.4f}) plain {plain:.4f} ms ({runs[0]:.4f}, {runs[3]:.4f}) "
-              f"bound {bound_ms:.4f} ms")
+              f"bound {bound_ms:.4f} ms ({bound_by}: {flops / 1e9:.3f} GFLOP, "
+              f"{nbytes / 1e6:.1f} MB)")
         check(err <= PANN_POWER_RTOL, f"PANN kernel vs plain at {sr} Hz: {err} > {PANN_POWER_RTOL}")
     return {"max_abs_err": worst, "rows": rows}
 
 
 def swin_layers(clap) -> dict:
-    """(stage, shifted) -> (kernel name, launches per forward), from the
-    model's own depths and shift rule."""
+    """(stage, shifted) -> the layer's kernel, width, heads, windows per image,
+    mask and launches per forward, read from the blocks of the CLAP module
+    that runs the main path (its parameters stay unset: only the layout is
+    read)."""
     layers = {}
-    for i, depth in enumerate(clap.DEPTHS):
-        kernel = ("swin_block_fused" if clap.STAGE_DIMS[i] <= clap.FUSED_BLOCK_MAX_DIM
-                  else "window_attention_fused")
-        for j in range(depth):
-            shifted = j % 2 == 1 and clap.STAGE_RES[i] > clap.WINDOW_SIZE
-            name, count = layers.get((i, shifted), (kernel, 0))
-            layers[(i, shifted)] = (name, count + 1)
+    for stage, module in enumerate(clap.CLAP().stages):
+        for block in module.blocks:
+            layer = layers.setdefault((stage, bool(block.shift)), {
+                "kernel": "swin_block_fused" if block.fused_block else "window_attention_fused",
+                "c": block.qkv.w.shape[0], "heads": block.heads, "nw": block.num_windows,
+                "mask": block.attn_mask, "per_forward": 0,
+            })
+            layer["per_forward"] += 1
     return layers
 
 
@@ -303,18 +305,14 @@ def swin_kernel_phase(torch, np, window_attn, clap, batch: int) -> dict:
 
     summary = {name: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
                       "flops": 0.0, "bytes": 0.0, "shapes": []}
-               for name in window_attn.LAUNCHES}
-    for (stage, shifted), (name, per_forward) in sorted(swin_layers(clap).items()):
-        c, heads, res = clap.STAGE_DIMS[stage], clap.NUM_HEADS[stage], clap.STAGE_RES[stage]
-        nw = (res // clap.WINDOW_SIZE) ** 2
+               for name in ("swin_block_fused", "window_attention_fused")}
+    for (stage, shifted), layer in sorted(swin_layers(clap).items()):
+        name, c, heads, nw = layer["kernel"], layer["c"], layer["heads"], layer["nw"]
+        per_forward = layer["per_forward"]
         table = normal(((2 * clap.WINDOW_SIZE - 1) ** 2, heads), 0.1)
         index = torch.from_numpy(clap._relative_position_index(clap.WINDOW_SIZE).reshape(-1))
         bias = table[index.long().to(dev)].reshape(n, n, heads).permute(2, 0, 1).contiguous()
-        if shifted:
-            mask = torch.from_numpy(
-                clap._shift_attn_mask(res, clap.WINDOW_SIZE, clap.WINDOW_SIZE // 2)).to(dev)
-        else:
-            mask = torch.zeros((1, n, n), device=dev)
+        mask = layer["mask"].to(dev)
         args = dict(
             x_windows=normal((batch * nw, n, c), 0.5),
             w_qkv=normal((c, 3 * c), 0.05), b_qkv=normal((3 * c,), 0.01),
@@ -364,17 +362,17 @@ def swin_kernel_phase(torch, np, window_attn, clap, batch: int) -> dict:
     return summary
 
 
-def run_scores(torch, fad, calls, counters, kernel: str, label: str) -> dict:
+def run_scores(torch, fad, calls, launches, kernel: str, label: str) -> dict:
     """fad.score for each (name, args, kwargs); each call must raise the count of `kernel`."""
     scores = {}
     for name, args, kwargs in calls:
-        before = counters.read()[kernel]
+        before = launches.read()[kernel]
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         scores[name] = fad.score(*args, **kwargs)
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated()
-        after = counters.read()[kernel]
+        after = launches.read()[kernel]
         print(f"{label} score {name}: {scores[name]!r} in {time.perf_counter() - t0:.3f} s, "
               f"peak {peak / 2**30:.3f} GiB, {kernel} launches {before} -> {after}")
         check(after > before, f"{label} score {name} did not launch {kernel}")
@@ -383,12 +381,12 @@ def run_scores(torch, fad, calls, counters, kernel: str, label: str) -> dict:
     return scores
 
 
-def run_path(torch, fad, calls, counters, kernel: str, label: str):
+def run_path(torch, fad, calls, launches, kernel: str, label: str):
     """One path: all four launch counts set to 0 just before it and read just
     after. Returns (scores, the counts)."""
-    counters.zero()
-    scores = run_scores(torch, fad, calls, counters, kernel, label)
-    counts = counters.read()
+    launches.zero()
+    scores = run_scores(torch, fad, calls, launches, kernel, label)
+    counts = launches.read()
     print(f"{label} path launches: {counts}")
     return scores, counts
 
@@ -458,14 +456,13 @@ def main() -> int:
     from frechet_audio_distance_exported_tpu_torch.models import clap
     from frechet_audio_distance_exported_tpu_torch.ops import _build, cuda_frontend, cuda_pann_frontend
     from frechet_audio_distance_exported_tpu_torch.ops import frontends as fe
-    from frechet_audio_distance_exported_tpu_torch.ops import window_attn
+    from frechet_audio_distance_exported_tpu_torch.ops import launches, window_attn
     from frechet_audio_distance_exported_tpu_torch.pipeline import DEFAULT_FILE_BATCH
     from frechet_audio_distance_exported_tpu_torch.utils import audio_io
 
     check(Path(port.__file__).resolve().is_relative_to(ROOT),
           f"the port must come from this checkout, got {port.__file__}")
     check("jax" not in sys.modules, "jax was imported")
-    counters = Counters(cuda_frontend, cuda_pann_frontend, window_attn)
 
     # 1. The card.
     smi = subprocess.run(
@@ -516,7 +513,7 @@ def main() -> int:
         check(fad.pipeline.file_batch == batch, "file_batch is not the CUDA default")
         timed_warmup(torch, fad, "vggish", batch)
         scores, counts = run_path(
-            torch, fad, pair_calls(bg, ev), counters, "fused_vggish_logmel", "vggish"
+            torch, fad, pair_calls(bg, ev), launches, "fused_vggish_logmel", "vggish"
         )
         check_only(counts, "fused_vggish_logmel", "vggish")
         vggish_launches = counts["fused_vggish_logmel"]
@@ -534,14 +531,14 @@ def main() -> int:
         others = {name: calculator(name) for name in ("pann-8k", "pann-32k")}
         pann_launches = {}
         scores, counts = run_path(
-            torch, fad, pair_calls(bg, ev), counters, "fused_pann_logmel", "pann-16k"
+            torch, fad, pair_calls(bg, ev), launches, "fused_pann_logmel", "pann-16k"
         )
         check_only(counts, "fused_pann_logmel", "pann-16k")
         pann_launches["pann-16k"] = counts["fused_pann_logmel"]
         check_pair_scores(scores, "pann-16k")
         for name, other in others.items():
             _, counts = run_path(torch, other, [("bg_ev", (bg_small, ev_small), {})],
-                                 counters, "fused_pann_logmel", name)
+                                 launches, "fused_pann_logmel", name)
             check_only(counts, "fused_pann_logmel", name)
             pann_launches[name] = counts["fused_pann_logmel"]
         card_vs_cpu(np, fad, calculator("pann-16k", "cpu"), clips16k(), 16000, (2, 2048),
@@ -555,13 +552,13 @@ def main() -> int:
         check(fad.pipeline.file_batch == batch, "CLAP file_batch is not the CUDA default")
         timed_warmup(torch, fad, "clap", batch)
         scores, counts = run_path(
-            torch, fad, pair_calls(clap_bg, clap_ev), counters, "swin_block_fused", "clap"
+            torch, fad, pair_calls(clap_bg, clap_ev), launches, "swin_block_fused", "clap"
         )
         check_clap_counts(counts, "clap")
         clap_launches = counts
         pann_launches["clap"] = counts["fused_pann_logmel"]
         check_pair_scores(scores, "clap")
-        _, counts = run_path(torch, fad, [("bg_ev", (bg_small, ev_small), {})], counters,
+        _, counts = run_path(torch, fad, [("bg_ev", (bg_small, ev_small), {})], launches,
                              "swin_block_fused", "clap 16 kHz")
         check_clap_counts(counts, "clap 16 kHz")
         card_vs_cpu(np, fad, calculator("clap", "cpu"), clips16k(), 16000, (2, 512), "clap")

@@ -224,6 +224,9 @@ class SwinBlock(nn.Module):
         super().__init__()
         self.heads, self.res, self.shift = heads, res, shift
         self.num_windows = (res // WINDOW_SIZE) ** 2
+        # The whole block in swin_block_fused, or the attention half in
+        # window_attention_fused and the MLP here.
+        self.fused_block = dim <= FUSED_BLOCK_MAX_DIM
         self.norm1 = LayerNorm(dim)
         self.qkv = Dense(dim, 3 * dim)
         self.rel_bias = _param((2 * WINDOW_SIZE - 1) ** 2, heads)
@@ -265,7 +268,7 @@ class SwinBlock(nn.Module):
             windows, self.qkv.w, self.qkv.b, self.proj.w, self.proj.b, self.attn_bias,
             self.attn_mask, self.norm1.gamma, self.norm1.beta,
         )
-        if c <= FUSED_BLOCK_MAX_DIM:
+        if self.fused_block:
             out = swin_block_fused(
                 *attention, self.norm2.gamma, self.norm2.beta, self.mlp.fc1.w, self.mlp.fc1.b,
                 self.mlp.fc2.w, self.mlp.fc2.b, heads=self.heads, num_windows=self.num_windows,
@@ -276,7 +279,7 @@ class SwinBlock(nn.Module):
         if shift:
             h = torch.roll(h, (shift, shift), dims=(1, 2))
         x = h.reshape(b, l, c)
-        if c > FUSED_BLOCK_MAX_DIM:
+        if not self.fused_block:
             x = x + self.mlp(self.norm2(x))
         return x
 

@@ -16,7 +16,7 @@ import functools
 import numpy as np
 import torch
 
-from . import _build, dsp
+from . import _build, dsp, launches
 from .frontends import (
     VGGISH_FFT,
     VGGISH_HOP,
@@ -27,9 +27,6 @@ from .frontends import (
     VGGISH_SAMPLE_RATE,
     VGGISH_WINDOW,
 )
-
-# Kernel launches in this process. Plain-version calls do not count.
-LAUNCHES = 0
 
 _MAX_GRID_Y = 65535  # the kernel puts the batch on gridDim.y
 
@@ -75,7 +72,6 @@ def fused_vggish_logmel(wave: torch.Tensor, num_frames: int) -> torch.Tensor:
     Frame t spans wave[t*160 : t*160 + 400]; samples past S read as zero.
     No mask: VGGish callers mask whole patches by per-file patch counts.
     CPU tensor: the plain version. CUDA tensor: the hand-written kernel."""
-    global LAUNCHES
     if wave.dtype != torch.float32:
         raise TypeError(f"fused_vggish_logmel takes float32, got {wave.dtype}")
     if wave.dim() != 2:
@@ -111,5 +107,5 @@ def fused_vggish_logmel(wave: torch.Tensor, num_frames: int) -> torch.Tensor:
         )
     if err != 0:
         raise RuntimeError(f"vggish_logmel kernel launch failed with cudaError {err}")
-    LAUNCHES += 1
+    launches.count("fused_vggish_logmel")
     return out

@@ -16,11 +16,8 @@ import functools
 import numpy as np
 import torch
 
-from . import _build, dsp
+from . import _build, dsp, launches
 from .frontends import PANN_CONFIGS
-
-# Kernel launches in this process. Plain-version calls do not count.
-LAUNCHES = 0
 
 _MAX_GRID_Y = 65535  # the kernel puts the batch on gridDim.y
 
@@ -89,7 +86,6 @@ def fused_pann_logmel(
     Frame t spans wave[t*hop : t*hop + n_fft]; samples past L read as zero.
     Rows >= n_valid_frames[b] (int32 [B], on the wave's device) are exactly 0.
     CPU tensor: the plain version. CUDA tensor: the hand-written kernel."""
-    global LAUNCHES
     n_fft, hop, mels = _geometry(target_sample_rate)
     if wave.dtype != torch.float32:
         raise TypeError(f"fused_pann_logmel takes float32, got {wave.dtype}")
@@ -141,5 +137,5 @@ def fused_pann_logmel(
         )
     if err != 0:
         raise RuntimeError(f"pann_logmel kernel launch failed with cudaError {err}")
-    LAUNCHES += 1
+    launches.count("fused_pann_logmel")
     return out

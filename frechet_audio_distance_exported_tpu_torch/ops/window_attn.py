@@ -32,11 +32,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from . import _build
-
-# Kernel launches in this process, one per wrapper call that reached the
-# card (each call runs several CUDA launches). Plain-version calls do not count.
-LAUNCHES = {"swin_block_fused": 0, "window_attention_fused": 0}
+from . import _build, launches
 
 LN_EPS = 1e-5
 # What the CUDA kernels take: 8x8 windows, head_dim 24 (every HTSAT-tiny
@@ -132,8 +128,38 @@ def _check_kernel_shapes(name: str, x: torch.Tensor, heads: int, operands: dict)
         raise ValueError(f"{name} needs contiguous tensors on the card")
 
 
-def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+def _ptrs(*tensors: torch.Tensor) -> list:
+    return [ctypes.c_void_p(t.data_ptr()) for t in tensors]
+
+
+def _run(name: str, x: torch.Tensor, operands: dict, heads: int, num_windows: int,
+         reference, launch) -> torch.Tensor:
+    """What both wrappers do: check the layout contract, send a CPU tensor to
+    the plain version, and on the card call launch(lib, out, stream), which
+    queues the kernel's launches and returns a cudaError code.
+
+    launch allocates the kernels' scratch in device memory (csrc/window_attn.cu
+    says why): the attention output, and for the whole block also the
+    attention residual x2 and the MLP's hidden layer. Freed when launch
+    returns, it is safe: the caching allocator reuses a block only for work
+    queued after the kernels on the same stream."""
+    _check(name, x, heads, num_windows, operands)
+    if x.device.type == "cpu":
+        return reference(x, **operands, heads=heads, num_windows=num_windows)
+    if x.device.type != "cuda":
+        raise ValueError(f"{name} runs on CPU or CUDA tensors, got {x.device}")
+    _check_kernel_shapes(name, x, heads, operands)
+    out = torch.empty_like(x)
+    if x.shape[0] == 0:
+        return out
+    lib = _build.load_library()
+    with torch.cuda.device(x.device):
+        stream = ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream)
+        err = launch(lib, out, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed with cudaError {err}")
+    launches.count(name)
+    return out
 
 
 def window_attention_fused(
@@ -144,32 +170,17 @@ def window_attention_fused(
     docstring). CPU tensor: the plain version. CUDA tensor: the kernel."""
     operands = dict(w_qkv=w_qkv, b_qkv=b_qkv, w_proj=w_proj, b_proj=b_proj, bias=bias,
                     mask=mask, gamma1=gamma1, beta1=beta1)
-    _check("window_attention_fused", x_windows, heads, num_windows, operands)
-    if x_windows.device.type == "cpu":
-        return window_attention_fused_reference(x_windows, **operands, heads=heads,
-                                                num_windows=num_windows)
-    if x_windows.device.type != "cuda":
-        raise ValueError(
-            f"window_attention_fused runs on CPU or CUDA tensors, got {x_windows.device}"
+
+    def launch(lib, out, stream):
+        attn = torch.empty_like(x_windows)
+        return lib.window_attention_launch(
+            *_ptrs(x_windows, w_qkv, b_qkv, w_proj, b_proj, bias, mask), mask.shape[0],
+            *_ptrs(gamma1, beta1, attn, out), x_windows.shape[0], x_windows.shape[2], heads,
+            stream,
         )
-    _check_kernel_shapes("window_attention_fused", x_windows, heads, operands)
-    out = torch.empty_like(x_windows)
-    if x_windows.shape[0] == 0:
-        return out
-    attn = torch.empty_like(x_windows)
-    lib = _build.load_library()
-    with torch.cuda.device(x_windows.device):
-        stream = torch.cuda.current_stream(x_windows.device).cuda_stream
-        err = lib.window_attention_launch(
-            _ptr(x_windows), _ptr(w_qkv), _ptr(b_qkv), _ptr(w_proj), _ptr(b_proj),
-            _ptr(bias), _ptr(mask), mask.shape[0], _ptr(gamma1), _ptr(beta1),
-            _ptr(attn), _ptr(out), x_windows.shape[0], x_windows.shape[2], heads,
-            ctypes.c_void_p(stream),
-        )
-    if err != 0:
-        raise RuntimeError(f"window_attention_fused kernel launch failed with cudaError {err}")
-    LAUNCHES["window_attention_fused"] += 1
-    return out
+
+    return _run("window_attention_fused", x_windows, operands, heads, num_windows,
+                window_attention_fused_reference, launch)
 
 
 def swin_block_fused(
@@ -182,35 +193,17 @@ def swin_block_fused(
     operands = dict(w_qkv=w_qkv, b_qkv=b_qkv, w_proj=w_proj, b_proj=b_proj, bias=bias,
                     mask=mask, gamma1=gamma1, beta1=beta1, gamma2=gamma2, beta2=beta2,
                     w_fc1=w_fc1, b_fc1=b_fc1, w_fc2=w_fc2, b_fc2=b_fc2)
-    _check("swin_block_fused", x_windows, heads, num_windows, operands)
-    if x_windows.device.type == "cpu":
-        return swin_block_fused_reference(x_windows, **operands, heads=heads,
-                                          num_windows=num_windows)
-    if x_windows.device.type != "cuda":
-        raise ValueError(f"swin_block_fused runs on CPU or CUDA tensors, got {x_windows.device}")
-    _check_kernel_shapes("swin_block_fused", x_windows, heads, operands)
-    out = torch.empty_like(x_windows)
-    bw, n, c = x_windows.shape
-    if bw == 0:
-        return out
-    # Scratch in device memory: the attention output, the attention residual
-    # x2 and the MLP's hidden layer (csrc/window_attn.cu says why). Freed when
-    # this returns, it is safe: the caching allocator reuses a block only for
-    # work queued after the kernels on the same stream.
-    attn = torch.empty_like(x_windows)
-    x2 = torch.empty_like(x_windows)
-    hidden = torch.empty((bw * n, 4 * c), dtype=torch.float32, device=x_windows.device)
-    lib = _build.load_library()
-    with torch.cuda.device(x_windows.device):
-        stream = torch.cuda.current_stream(x_windows.device).cuda_stream
-        err = lib.swin_block_launch(
-            _ptr(x_windows), _ptr(w_qkv), _ptr(b_qkv), _ptr(w_proj), _ptr(b_proj),
-            _ptr(bias), _ptr(mask), mask.shape[0], _ptr(gamma1), _ptr(beta1),
-            _ptr(gamma2), _ptr(beta2), _ptr(w_fc1), _ptr(b_fc1), _ptr(w_fc2), _ptr(b_fc2),
-            _ptr(attn), _ptr(x2), _ptr(hidden), _ptr(out), bw, c, heads,
-            ctypes.c_void_p(stream),
+
+    def launch(lib, out, stream):
+        bw, n, c = x_windows.shape
+        attn, x2 = torch.empty_like(x_windows), torch.empty_like(x_windows)
+        hidden = torch.empty((bw * n, 4 * c), dtype=torch.float32, device=x_windows.device)
+        return lib.swin_block_launch(
+            *_ptrs(x_windows, w_qkv, b_qkv, w_proj, b_proj, bias, mask), mask.shape[0],
+            *_ptrs(gamma1, beta1, gamma2, beta2, w_fc1, b_fc1, w_fc2, b_fc2, attn, x2, hidden,
+                   out),
+            bw, c, heads, stream,
         )
-    if err != 0:
-        raise RuntimeError(f"swin_block_fused kernel launch failed with cudaError {err}")
-    LAUNCHES["swin_block_fused"] += 1
-    return out
+
+    return _run("swin_block_fused", x_windows, operands, heads, num_windows,
+                swin_block_fused_reference, launch)

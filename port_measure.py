@@ -187,9 +187,8 @@ def clap_prep(pipeline_mod, fe, pipe):
 
 def measure_model(torch, np, port, model_name: str, n_clips: int, batches, tmp) -> dict:
     from frechet_audio_distance_exported_tpu_torch import pipeline as pipeline_mod
-    from frechet_audio_distance_exported_tpu_torch.ops import cuda_frontend, cuda_pann_frontend
     from frechet_audio_distance_exported_tpu_torch.ops import frontends as fe
-    from frechet_audio_distance_exported_tpu_torch.ops import window_attn
+    from frechet_audio_distance_exported_tpu_torch.ops import launches
 
     fad = port.FrechetAudioDistance(
         model_name=model_name, weights="random", seed=SEED, ckpt_dir=tmp, device="cuda"
@@ -203,15 +202,6 @@ def measure_model(torch, np, port, model_name: str, n_clips: int, batches, tmp) 
     ]
     audio_min = n_clips * CLIP_SECONDS / 60.0
     family = fad.pipeline.cfg.family
-
-    def zero_launches():
-        cuda_frontend.LAUNCHES = cuda_pann_frontend.LAUNCHES = 0
-        for name in window_attn.LAUNCHES:
-            window_attn.LAUNCHES[name] = 0
-
-    def read_launches():
-        return {"fused_vggish_logmel": cuda_frontend.LAUNCHES,
-                "fused_pann_logmel": cuda_pann_frontend.LAUNCHES, **window_attn.LAUNCHES}
 
     def pipe_for(fb):
         return pipeline_mod.EmbeddingPipeline(model_name, fad.model, fad.device, file_batch=fb)
@@ -234,10 +224,10 @@ def measure_model(torch, np, port, model_name: str, n_clips: int, batches, tmp) 
     default = pipe_for(None)
     run = pass_of(default)
     run()
-    zero_launches()
+    launches.zero()
     prof = device_profile(torch, run)
     prof["file_batch"] = default.file_batch
-    prof["kernel_launches"] = read_launches()
+    prof["kernel_launches"] = launches.read()
     print(f"{model_name} profile at file_batch {default.file_batch}: wall "
           f"{prof['wall_ms']:.1f} ms, device busy {prof['device_busy_ms']:.1f} ms "
           f"({100 * prof['busy_share']:.1f} %)")

@@ -3,7 +3,12 @@
 Both run the same numpy parameter tree: the JAX initializer's weights with
 every LayerNorm gamma and beta, every bias and bn0's four statistics
 perturbed in numpy (the initializer makes them 1 or 0, so a dropped or
-swapped field could not show otherwise). The JAX side runs
+swapped field could not show otherwise), and each block's qkv, proj, fc1 and
+fc2 weights and relative-position table scaled by 5. At the initializer's
+std of 0.02 a block adds about 1e-2 to a unit residual stream, too little
+for a wrong window layout to show on the embedding; at 5x the blocks'
+terms are of order 1, and planted faults (a wrong roll sign, a wrong
+window order) leave the bound by far. The JAX side runs
 clap_forward(attn="xla"), the assembly that the JAX package's tests run on
 the CPU; the port runs its plain window versions, which its wrappers take
 for CPU tensors.
@@ -28,6 +33,7 @@ from frechet_audio_distance_exported_tpu_torch.ops import frontends as fe  # noq
 from frechet_audio_distance_exported_tpu_torch.utils import weights  # noqa: E402
 
 ATOL = 5e-5
+BLOCK_SCALE = 5.0  # on each block's qkv, proj, fc1, fc2 weights and rel_bias
 
 
 def clap_tree(seed=0):
@@ -48,6 +54,11 @@ def clap_tree(seed=0):
                 node[key] = (0.05 * rng.standard_normal(value.shape)).astype(np.float32)
 
     perturb(tree)
+    for stage in tree["stages"]:
+        for block in stage["blocks"]:
+            block["rel_bias"] = block["rel_bias"] * np.float32(BLOCK_SCALE)
+            for layer in (block["qkv"], block["proj"], block["mlp"]["fc1"], block["mlp"]["fc2"]):
+                layer["w"] = layer["w"] * np.float32(BLOCK_SCALE)
     # bn0 over log-mel bins (dB): mean about -30, variance about 100.
     tree["bn0"]["mean"] = (-30.0 + 3.0 * rng.standard_normal(64)).astype(np.float32)
     tree["bn0"]["var"] = (100.0 * (0.5 + rng.random(64))).astype(np.float32)
@@ -81,15 +92,47 @@ def jax_forward(tree, x):
     return np.asarray(jclap.clap_forward(params, jnp.asarray(x), attn="xla"))
 
 
-def test_forward_matches_jax(tree, model):
+@pytest.fixture(scope="module")
+def jax_pair(tree):
+    """(log-mel [2, 1001, 64], the JAX embeddings of it)."""
     x = log_mel(2, seed=1)
-    ref = jax_forward(tree, x)
+    return x, jax_forward(tree, x)
+
+
+def test_forward_matches_jax(jax_pair, model):
+    x, ref = jax_pair
     with torch.inference_mode():
         ours = model(torch.from_numpy(x)).numpy()
     assert ours.shape == (2, 512)
     np.testing.assert_allclose(np.linalg.norm(ours, axis=1), 1.0, rtol=1e-5)
     assert np.abs(ours[0] - ours[1]).max() > 20 * ATOL  # the inputs move the embedding
     np.testing.assert_allclose(ours, ref, rtol=0, atol=ATOL)
+
+
+def _window_reverse_swapped(x, ws, h, w):
+    """_window_reverse with the two window-grid axes swapped."""
+    b = x.shape[0] // ((h // ws) * (w // ws))
+    x = x.reshape(b, h // ws, w // ws, ws, ws, -1).permute(0, 2, 3, 1, 4, 5)
+    return x.reshape(b, h, w, -1)
+
+
+@pytest.mark.parametrize("fault", ["roll_sign", "window_order"])
+def test_planted_layout_fault_leaves_the_bound(jax_pair, model, monkeypatch, fault):
+    """The bound of test_forward_matches_jax catches a wrong window layout:
+    with every shifted block's roll turned the other way, or the windows put
+    back in the wrong order, the embedding leaves the ATOL band by far (by
+    about 19 and 56 times ATOL on this tree and input)."""
+    if fault == "roll_sign":
+        for stage in model.stages:
+            for block in stage.blocks:
+                monkeypatch.setattr(block, "shift", -block.shift)
+    else:
+        monkeypatch.setattr(clap, "_window_reverse", _window_reverse_swapped)
+    x, ref = jax_pair
+    with torch.inference_mode():
+        ours = model(torch.from_numpy(x)).numpy()
+    assert np.isfinite(ours).all()
+    assert np.abs(ours - ref).max() > 10 * ATOL
 
 
 def test_stages_dispatch_to_the_window_kernels(model, monkeypatch):

@@ -29,7 +29,7 @@ from frechet_audio_distance_exported_tpu.utils import audio_io as jax_io  # noqa
 from frechet_audio_distance_exported_tpu.utils.weights import save_weights  # noqa: E402
 from frechet_audio_distance_exported_tpu_torch import FrechetAudioDistance  # noqa: E402
 from frechet_audio_distance_exported_tpu_torch.ops import frontends as fe  # noqa: E402
-from frechet_audio_distance_exported_tpu_torch.ops import window_attn  # noqa: E402
+from frechet_audio_distance_exported_tpu_torch.ops import launches  # noqa: E402
 from frechet_audio_distance_exported_tpu_torch.utils import audio_io  # noqa: E402
 from test_torch_clap_model import clap_tree  # noqa: E402
 
@@ -140,6 +140,6 @@ def test_clap_logmel_batch_matches_jax():
 
 def test_cpu_run_launches_no_kernel(setup):
     _, fad, _, _ = setup
-    before = dict(window_attn.LAUNCHES)
+    before = launches.read()
     fad.warmup(durations=(0.5,), num_files=2)
-    assert window_attn.LAUNCHES == before
+    assert launches.read() == before

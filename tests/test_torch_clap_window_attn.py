@@ -29,7 +29,7 @@ from frechet_audio_distance_exported_tpu_torch.models.clap import (  # noqa: E40
     _relative_position_index,
     _shift_attn_mask,
 )
-from frechet_audio_distance_exported_tpu_torch.ops import window_attn  # noqa: E402
+from frechet_audio_distance_exported_tpu_torch.ops import launches, window_attn  # noqa: E402
 
 N, WS = 64, 8
 ATOL = 2e-5
@@ -97,9 +97,9 @@ def test_plain_version_matches_jax_pallas_interpret(case):
     ref = getattr(jax_kernels, kernel)(
         *(jnp.asarray(arrays[k]) for k in args), heads=heads, num_windows=nw, interpret=True
     )
-    before = dict(window_attn.LAUNCHES)
+    before = launches.read()
     ours = getattr(window_attn, kernel)(**args, heads=heads, num_windows=nw)
-    assert window_attn.LAUNCHES == before  # a CPU tensor takes the plain version
+    assert launches.read() == before  # a CPU tensor takes the plain version
     plain = getattr(window_attn, f"{kernel}_reference")(**args, heads=heads, num_windows=nw)
     assert torch.equal(ours, plain)
     assert ours.shape == (batch * nw, N, c) and torch.isfinite(ours).all()
@@ -153,10 +153,10 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
 def test_kernel_matches_plain_version_on_the_card(cuda_device, case):
     kernel, c, heads, nw, shifted, batch = CASES[case]
     args = operands(kernel, make_inputs(c, heads, nw, shifted, batch, seed=1), cuda_device)
-    before = window_attn.LAUNCHES[kernel]
+    before = launches.read()[kernel]
     out = getattr(window_attn, kernel)(**args, heads=heads, num_windows=nw)
     torch.cuda.synchronize()
-    assert window_attn.LAUNCHES[kernel] == before + 1
+    assert launches.read()[kernel] == before + 1
     ref = getattr(window_attn, f"{kernel}_reference")(**args, heads=heads, num_windows=nw)
     assert out.shape == ref.shape and bool(torch.isfinite(out).all())
     assert float((out - ref).abs().max()) <= CARD_ATOL
