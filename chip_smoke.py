@@ -6,8 +6,9 @@ Builds the port's four CUDA kernels from the sources in this checkout and
 checks each against its plain torch version at its main path's shapes, at
 the CUDA file_batch of 64: the two log-mel kernels, swin_block_fused at
 CLAP stages 1-3 (shifted and not) and window_attention_fused at stage 4,
-each timed beside its plain version and its bound. Then it drives the
-ported paths through the public API,
+each timed beside its plain version and its bound (the PANN kernel also
+beside a cuFFT composition of the same log-mel, as a yardstick). Then it
+drives the ported paths through the public API,
 FrechetAudioDistance(weights="random", device="cuda"):
 - VGGish: scores two 16 kHz WAV corpora and checks the results;
 - PANN: scores the same corpora with pann-16k, and a part of them with
@@ -15,6 +16,8 @@ FrechetAudioDistance(weights="random", device="cuda"):
 - CLAP: scores two 48 kHz corpora (with a 12 s clip, truncated, and a
   0.5 s one), then the 16 kHz part (resampled as it is loaded), and holds
   card embeddings against the CPU's on the pipeline's resample path.
+The CLAP pair and the pann-32k pair are also scored on the CPU plain path:
+the card's FAD must agree within 1e-3, absolute and relative.
 Each path runs with all four launch counts set to 0 just before it and read
 just after, so the counts show which kernels it went through: VGGish and
 PANN launch only their own log-mel kernel; CLAP launches the PANN log-mel
@@ -27,8 +30,10 @@ Any failure raises and the exit code is non-zero. It imports nothing of JAX.
 The last line of standard output is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}};
 the line before it lists the kernels with their launch counts, errors,
-times per 64-clip chunk and bounds. Without CUDA, or outside a checkout of
-the repository, it exits non-zero and prints no result.
+times per 64-clip chunk, bounds (with the peak rate each used:
+`bound_flops_per_s`) and arithmetic (`arith`: "fp32 fma" or "3xtf32 mma").
+Without CUDA, or outside a checkout of the repository, it exits non-zero and
+prints no result.
 """
 
 from __future__ import annotations
@@ -63,17 +68,25 @@ DEVICE_STATS_RTOL = 1e-3
 SWIN_ATOL = 1e-4
 CLAP_CLIPS = 16  # per corpus, 10 s at 48 kHz
 CLAP_LONG_SECONDS = 12.0  # past CLAP's 10 s: truncated to the 1001-frame read window
-# The peak rates of the H100 SXM: float32 outside the tensor cores, and
-# device memory.
+# The peak rates of the H100 SXM: float32 outside the tensor cores; float32-
+# accurate products on the tensor cores, 3xTF32 (dense TF32, 495 TFLOP/s, over
+# the three products of the split); and device memory.
 F32_FLOPS = 67e12
+TF32X3_FLOPS = 495e12 / 3
 HBM_BYTES_PER_S = 3.35e12
+FAD_DELTA = 1e-3  # card vs CPU plain path, absolute and relative
 
 
-def bound(flops: float, nbytes: float):
-    """(least ms, what bounds it): the larger of flops at the float32 peak and
+def bound(flops: float, nbytes: float, flops_per_s: float = F32_FLOPS):
+    """(least ms, what bounds it): the larger of flops at the given peak (the
+    float32 SIMT one unless the kernel's products run on the tensor cores) and
     bytes at the memory rate."""
-    ops_ms, bytes_ms = flops / F32_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms, bytes_ms = flops / flops_per_s * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def rate_name(flops_per_s: float) -> str:
+    return {F32_FLOPS: "67 TFLOP/s fp32", TF32X3_FLOPS: "165 TFLOP/s 3xTF32"}[flops_per_s]
 
 
 def logmel_flops(np, frames: int, window: int, n_fft: int, mel, magnitude: bool) -> float:
@@ -215,6 +228,19 @@ def vggish_kernel_phase(torch, np, cuda_frontend, fe, batch: int) -> dict:
     return {"max_abs_err": max_err, **rows[960]}
 
 
+def cufft_logmel(torch, wave, mel, n_valid, n_fft: int, hop: int, num_frames: int):
+    """The PANN log-mel composed from cuFFT and cuBLAS: torch.fft.rfft of the
+    windowed frames, power, mel product, dB, mask. A yardstick for the FFT
+    kernel's time only; the port never calls it."""
+    frames = wave[:, : (num_frames - 1) * hop + n_fft].unfold(1, n_fft, hop)
+    window = torch.hann_window(n_fft, periodic=True, device=wave.device)
+    spectrum = torch.fft.rfft(frames * window)
+    power = spectrum.real * spectrum.real + spectrum.imag * spectrum.imag
+    log_mel = 10.0 * torch.log10(torch.clamp_min(torch.matmul(power, mel), 1e-10))
+    keep = torch.arange(num_frames, device=wave.device)[None, :, None] < n_valid[:, None, None]
+    return torch.where(keep, log_mel, 0.0)
+
+
 def pann_kernel_phase(torch, np, cuda_pann_frontend, fe, batch: int) -> dict:
     """PANN kernel vs plain at all four geometries: B = the CUDA PANN
     file_batch, T = 1032 (10 s clips on their grid; the buffer is the grid's
@@ -223,7 +249,8 @@ def pann_kernel_phase(torch, np, cuda_pann_frontend, fe, batch: int) -> dict:
     error and each geometry's numbers. The bound counts the frames below
     n_valid (the kernel skips tiles past it) in logmel_flops, with an n_fft
     FFT and the Slaney mel's nonzero taps, and as bytes the samples those
-    frames read, n_valid and the whole log-mel written."""
+    frames read, n_valid and the whole log-mel written. Also times
+    cufft_logmel on the same inputs (printed, not in the kernels line)."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     worst, rows = 0.0, {}
@@ -256,11 +283,19 @@ def pann_kernel_phase(torch, np, cuda_pann_frontend, fe, batch: int) -> dict:
             lambda: cuda_pann_frontend.fused_pann_logmel_reference(wave, n_valid, sr, num_frames),
         )
         mel = cuda_pann_frontend._slaney_mel_np(sr)
+        mel_dev = torch.from_numpy(np.ascontiguousarray(mel)).to(dev)
+        composed = cufft_logmel(torch, wave, mel_dev, n_valid, n_fft, hop, num_frames)
+        check(bool(torch.isfinite(composed).all()), f"cuFFT log-mel not finite at {sr} Hz")
+        cufft_ms = cuda_ms(torch, lambda: cufft_logmel(torch, wave, mel_dev, n_valid, n_fft, hop,
+                                                       num_frames))
+        print(f"pann logmel {sr} Hz: cuFFT + cuBLAS composition (torch.fft.rfft, power, mel "
+              f"matmul, dB; a yardstick only) {cufft_ms:.4f} ms")
         flops = logmel_flops(np, int(nv.sum()), n_fft, n_fft, mel, False)
         read = sum(min(wave.shape[1], (int(v) - 1) * hop + n_fft) for v in nv if v)
         nbytes = 4 * (read + batch + out.numel())
         bound_ms, bound_by = bound(flops, nbytes)
-        rows[sr] = {"ms": kern, "plain_ms": plain, "bound_ms": bound_ms, "bound_by": bound_by}
+        rows[sr] = {"ms": kern, "plain_ms": plain, "bound_ms": bound_ms, "bound_by": bound_by,
+                    "cufft_ms": cufft_ms}
         print(f"pann logmel {sr} Hz (n_fft {n_fft}, hop {hop}) B={batch} T={num_frames}: "
               f"max power err / file max {err:.3e}, kernel {kern:.4f} ms "
               f"({runs[1]:.4f}, {runs[2]:.4f}) plain {plain:.4f} ms ({runs[0]:.4f}, {runs[3]:.4f}) "
@@ -295,7 +330,10 @@ def swin_kernel_phase(torch, np, window_attn, clap, batch: int) -> dict:
     time, plain time and bound of one 64-clip chunk (each shape's launch
     times its launches per forward). The bound counts 24*M*C^2 + 4*M*64*C
     flops for the block and 8*M*C^2 + 4*M*64*C for the attention half (M =
-    tokens), and x, out, the weights, bias and mask as bytes."""
+    tokens) at the 3xTF32 rate (both kernels form every product so), and x,
+    out, the weights, bias and mask as bytes; the bound at the float32 SIMT
+    rate (67 TFLOP/s), which a kernel on FMA lanes would face, is printed
+    beside it."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
     n = clap.WINDOW_SIZE ** 2
@@ -304,7 +342,7 @@ def swin_kernel_phase(torch, np, window_attn, clap, batch: int) -> dict:
         return torch.randn(shape, generator=gen, device=dev) * scale + offset
 
     summary = {name: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-                      "flops": 0.0, "bytes": 0.0, "shapes": []}
+                      "bound_ms_fp32": 0.0, "flops": 0.0, "bytes": 0.0, "shapes": []}
                for name in ("swin_block_fused", "window_attention_fused")}
     for (stage, shifted), layer in sorted(swin_layers(clap).items()):
         name, c, heads, nw = layer["kernel"], layer["c"], layer["heads"], layer["nw"]
@@ -340,25 +378,28 @@ def swin_kernel_phase(torch, np, window_attn, clap, batch: int) -> dict:
         flops = c2 * m * c * c + 4 * m * n * c
         nbytes = 4 * (2 * args["x_windows"].numel()
                       + sum(t.numel() for k, t in args.items() if k != "x_windows"))
-        bound_ms, bound_by = bound(flops, nbytes)
+        bound_ms, bound_by = bound(flops, nbytes, TF32X3_FLOPS)
+        bound_ms_fp32 = bound(flops, nbytes)[0]
         print(f"{name} stage {stage + 1} (C {c}, {heads} heads, nW {nw}, "
               f"{'shifted' if shifted else 'unshifted'}) B={batch}: max_abs_err {err:.3e}, "
               f"kernel {kern_ms:.4f} ms ({runs[1]:.4f}, {runs[2]:.4f}) plain {plain_ms:.4f} ms "
-              f"({runs[0]:.4f}, {runs[3]:.4f}) bound {bound_ms:.4f} ms ({bound_by}, "
+              f"({runs[0]:.4f}, {runs[3]:.4f}) bound {bound_ms:.4f} ms ({bound_by} at "
+              f"{rate_name(TF32X3_FLOPS)}; {bound_ms_fp32:.4f} ms at {rate_name(F32_FLOPS)}; "
               f"{flops / 1e9:.2f} GFLOP, {flops / kern_ms / 1e9:.2f} TFLOP/s), "
               f"{per_forward} per forward")
         check(err <= SWIN_ATOL, f"{name} vs plain at stage {stage + 1}: {err} > {SWIN_ATOL}")
         row = summary[name]
         row["max_abs_err"] = max(row["max_abs_err"], err)
         for key, value in (("ms", kern_ms), ("plain_ms", plain_ms), ("bound_ms", bound_ms),
-                           ("flops", flops), ("bytes", nbytes)):
+                           ("bound_ms_fp32", bound_ms_fp32), ("flops", flops), ("bytes", nbytes)):
             row[key] += per_forward * value
         row["shapes"].append({"stage": stage + 1, "C": c, "heads": heads, "shifted": shifted,
                               "per_forward": per_forward, "ms": kern_ms, "plain_ms": plain_ms,
-                              "bound_ms": bound_ms, "max_abs_err": err})
+                              "bound_ms": bound_ms, "bound_ms_fp32": bound_ms_fp32,
+                              "max_abs_err": err})
         del args, out, ref
     for row in summary.values():
-        row["bound_by"] = bound(row.pop("flops"), row.pop("bytes"))[1]
+        row["bound_by"] = bound(row.pop("flops"), row.pop("bytes"), TF32X3_FLOPS)[1]
     return summary
 
 
@@ -428,6 +469,21 @@ def card_vs_cpu(np, fad, cpu_fad, clips, sr: int, shape, label: str) -> None:
     print(f"{label} embeddings card vs CPU plain path: max_abs_err {err:.3e} "
           f"(mean |x| {float(np.abs(on_cpu).mean()):.3e})")
     check(err <= EMBEDDING_ATOL, f"{label} card vs CPU embeddings {err} > {EMBEDDING_ATOL}")
+
+
+def fad_delta(score_on_card: float, cpu_fad, bg: str, ev: str, label: str) -> None:
+    """The pair scored on the CPU plain path (the plain versions of every
+    kernel, CPU convolutions) against the card's score: |delta| <= 1e-3 both
+    absolute and relative, since random-weight scores are small."""
+    t0 = time.perf_counter()
+    on_cpu = cpu_fad.score(bg, ev)
+    check(on_cpu != -1 and math.isfinite(on_cpu), f"{label} CPU score = {on_cpu}")
+    delta = abs(score_on_card - on_cpu)
+    rel = delta / abs(on_cpu)
+    print(f"{label} FAD card {score_on_card!r} vs CPU plain path {on_cpu!r} "
+          f"({time.perf_counter() - t0:.1f} s): |delta| {delta:.3e} absolute, {rel:.3e} relative")
+    check(delta <= FAD_DELTA and rel <= FAD_DELTA,
+          f"{label} card vs CPU FAD: {delta} absolute, {rel} relative > {FAD_DELTA}")
 
 
 def timed_warmup(torch, fad, label: str, batch: int) -> None:
@@ -536,13 +592,17 @@ def main() -> int:
         check_only(counts, "fused_pann_logmel", "pann-16k")
         pann_launches["pann-16k"] = counts["fused_pann_logmel"]
         check_pair_scores(scores, "pann-16k")
+        small_scores = {}
         for name, other in others.items():
-            _, counts = run_path(torch, other, [("bg_ev", (bg_small, ev_small), {})],
-                                 launches, "fused_pann_logmel", name)
+            small_scores[name], counts = run_path(
+                torch, other, [("bg_ev", (bg_small, ev_small), {})], launches,
+                "fused_pann_logmel", name)
             check_only(counts, "fused_pann_logmel", name)
             pann_launches[name] = counts["fused_pann_logmel"]
         card_vs_cpu(np, fad, calculator("pann-16k", "cpu"), clips16k(), 16000, (2, 2048),
                     "pann-16k")
+        fad_delta(small_scores["pann-32k"]["bg_ev"], calculator("pann-32k", "cpu"), bg_small,
+                  ev_small, "pann-32k")
         del fad, others
 
         # 6. The CLAP path through the public API: the 48 kHz corpora (the
@@ -561,7 +621,9 @@ def main() -> int:
         _, counts = run_path(torch, fad, [("bg_ev", (bg_small, ev_small), {})], launches,
                              "swin_block_fused", "clap 16 kHz")
         check_clap_counts(counts, "clap 16 kHz")
-        card_vs_cpu(np, fad, calculator("clap", "cpu"), clips16k(), 16000, (2, 512), "clap")
+        cpu_clap = calculator("clap", "cpu")
+        card_vs_cpu(np, fad, cpu_clap, clips16k(), 16000, (2, 512), "clap")
+        fad_delta(scores["bg_ev"], cpu_clap, clap_bg, clap_ev, "clap")
 
     print(json.dumps({"kernels": [
         {
@@ -577,6 +639,8 @@ def main() -> int:
             "bound_ms": vggish["bound_ms"],
             "bound_by": vggish["bound_by"],
             "library_ms": None,
+            "arith": "fp32 fma",
+            "bound_flops_per_s": F32_FLOPS,
             "at": "64 files x 960 frames",
         },
         {
@@ -590,6 +654,8 @@ def main() -> int:
             "err_of": "linear mel power, relative to each file's largest",
             **pann["rows"][16000],
             "library_ms": None,
+            "arith": "fp32 fma",
+            "bound_flops_per_s": F32_FLOPS,
             "at": "pann-16k, 64 files x 1032 frames",
             "by_rate": pann["rows"],
         },
@@ -606,7 +672,10 @@ def main() -> int:
                 "plain_ms": swin[name]["plain_ms"],
                 "bound_ms": swin[name]["bound_ms"],
                 "bound_by": swin[name]["bound_by"],
+                "bound_ms_fp32": swin[name]["bound_ms_fp32"],
                 "library_ms": None,
+                "arith": "3xtf32 mma",
+                "bound_flops_per_s": TF32X3_FLOPS,
                 "at": "one 64-clip CLAP chunk: every launch of a forward",
                 "shapes": swin[name]["shapes"],
             }

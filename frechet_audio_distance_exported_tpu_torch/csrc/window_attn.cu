@@ -11,63 +11,78 @@
 //     softmax(q_h k_h^T * hd^-1/2 + bias[h] + mask) v_h,  q_h = columns h*24 .. h*24+23 of q
 // with head_dim 24 (every HTSAT-tiny stage; heads 4, 8, 16, 32 for C = 96, 192, 384, 768).
 // LayerNorm is two-pass with eps 1e-5, GELU the exact erf form (erff), softmax subtracts the
-// row max. Everything is exact float32: FMA loops, no tensor cores, no TF32.
+// row max.
+//
+// Arithmetic: every matrix product (q, k, v, q k^T, p v, proj, fc1, fc2) runs on the tensor
+// cores as 3xTF32: each float32 operand is split into hi = tf32(a) (cvt.rna) and lo =
+// tf32(a - hi), and a*b is formed as a_lo*b_hi + a_hi*b_lo + a_hi*b_hi with
+// mma.sync.m16n8k8 TF32. Each k-step's three products go into a zeroed fragment that a
+// float32 add folds into the accumulator (mma_3xtf32 says why). That keeps float32 accuracy
+// (about 2^-21 relative per product against 2^-24), so the port's exact-float32 rule holds;
+// plain 1xTF32 (2^-11) would not. Softmax, LayerNorm, GELU and the epilogues stay float32
+// SIMT.
 //
 // What bounds it on the H100: for M = BW * 64 tokens the block does 24*M*C^2 + 4*M*64*C
 // flops (qkv 6, proj 2, fc1 8, fc2 8 times M*C^2; q k^T and p v 4*M*64*C), the attention
-// half 8*M*C^2 + 4*M*64*C, while it reads and writes only x, out and the weights: about 80
-// flops per byte at C = 96, far above the 20 of float32 SIMT (67 TFLOP/s over 3.35 TB/s). So
-// both are compute-bound.
+// half 8*M*C^2 + 4*M*64*C, and must move only x, out and the weights. Float32-accurate
+// products run at most at 495 / 3 = 165 TFLOP/s (dense TF32 over the three products of the
+// split): about 49 flops per byte at 3.35 TB/s, against some 200 for the block at C = 96. So
+// both kernels are bound by operations.
 //
-// How it is laid out. The TPU kernel keeps a window's qkv [64, 3C] and MLP hidden layer
-// [64, 4C] whole in VMEM; at C = 384 those are 288 KB and 384 KB, beyond a block's 227 KB of
-// shared memory. So each TPU kernel becomes a short sequence of launches, every product of
-// its body computed by a kernel written here:
+// How it is laid out. A window's qkv [64, 3C] and hidden layer [64, 4C] are 288 KB and
+// 384 KB at C = 384, beyond a block's 227 KB of shared memory, so the block is two launches:
 // 1. window_attention_core_kernel, one block per (window, group of 4 heads): the LayerNorm
-//    statistics of the window's 64 rows, then q, k and v of its 4 heads ([64, 96] each, LN1
-//    applied as the rows are staged), kept in shared memory (75 KB); then attention with 4
-//    threads per query row (16 keys each, row max and sum by warp shuffles, logits and
-//    probabilities in registers); writes its heads' columns of attn [M, C]. Splitting heads
-//    over blocks gives stage 4 (64 windows at a batch of 64) 512 blocks, not 64.
-// 2. rowtile_gemm_kernel, one block per (64 rows, 96 columns) of out = epilogue(op(A) @ W +
-//    b): op is the identity or a LayerNorm (statistics per block, applied as A is staged);
-//    the epilogue adds a residual or applies GELU. It runs proj + residual (-> out, or x2
-//    for the block), LN2 + fc1 + GELU (-> hidden [M, 4C]) and fc2 + residual (-> out).
-// Every product stages a [64, 32] slab of A and a [32, 96] slab of W in shared memory (W is
-// streamed from L2, where all blocks share it); each of 256 threads keeps a 4 x 6 register
-// tile. The columns of q, k, v (3C, in 96-wide head groups), proj (C) and the MLP (4C) are
-// all multiples of 96, and every depth (C, 4C) a multiple of 32, at every stage.
-// The price of the split: attn, x2 and hidden go through device memory (at stage 1, batch
-// 64: 100, 100 and 403 MB written and read once each, about 0.4 ms at 3.35 TB/s against a
-// 0.96 ms compute bound). Keeping the hidden layer in shared memory in column chunks, and
-// tensor cores with an FAD-delta check, are later work.
+//    statistics of the window's 64 rows; q, k and v of its 4 heads ([64, 96] each, LN1
+//    applied to each staged slab of x) kept in shared memory (77 KB); then one warp per
+//    (head, 32 query rows): S = q k^T (3 k-steps of 8), bias + mask, softmax from the row max
+//    in registers, P v (8 k-steps of 8 keys). The p v k-step takes keys in the order 2t, 2t+1
+//    of the S fragment, so P goes from the accumulator to the A operand with no exchange.
+//    Writes its heads' columns of attn [M, C], the only intermediate in device memory.
+//    Splitting heads over blocks gives stage 4 (64 windows at a batch of 64) 512 blocks.
+// 2. swin_mlp_kernel<C>, one block per window (C = 96, 192, 384, with 4, 8 and 12 warps: as
+//    few as hold the [64, C] accumulator in registers): proj + b_proj + x -> x2 in
+//    registers; LN2(x2) staged in shared memory ([64, C], 97 KB at C = 384); the accumulator
+//    starts as x2 + b_fc2, and for each 96-column chunk of the hidden layer
+//    h = GELU(LN2(x2) @ W1[:, chunk] + b1) is kept in shared memory and acc += h @ W2[chunk, :].
+//    Only out is written: x2 and the hidden layer never reach device memory.
+// window_attention_fused is the same core launch, then proj_residual_kernel: one block per
+// (window, 96 output columns), out = x + attn @ W_proj + b_proj.
+// All products go through one building block, block_mma: a [64, NT] tile of op(A) @ W, its
+// warps in 2 rows of 32 by WARPS / 2 columns; W (and A, where it comes from device memory)
+// streamed from L2 in [KT, NT] slabs through a two-stage cp.async ring, so a slab's load
+// overlaps the previous slab's products. Row strides are padded (A: 4 mod 32 floats, W: 8 mod
+// 32) so that the fragment loads are free of bank conflicts.
 //
-// The wrapper (ops/window_attn.py) checks shapes, types, devices and contiguity and
-// allocates the output and the scratch; a CUDA tensor reaches these kernels or the wrapper
-// raises, and there is no fallback to the plain version.
+// The wrapper (ops/window_attn.py) checks shapes, types, devices, contiguity and 16-byte
+// alignment, and allocates the output and the attn scratch; a CUDA tensor reaches these
+// kernels or the wrapper raises, and there is no fallback to the plain version.
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int WIN = 64;               // tokens of an 8x8 window
+constexpr int THREADS = 256;          // eight warps: the attention core and proj_residual_kernel
+// Warps of swin_mlp_kernel<C>: as few as keep its [64, C] fc2 accumulator and fc1 chunk in
+// registers without spilling (fewer warps, larger warp tiles, more reuse of each fragment):
+// at C = 384, 12 warps hold 64 accumulator floats a thread.
+template <int C>
+constexpr int mlp_warps() {
+  return C == 96 ? 4 : C == 192 ? 8 : 12;
+}
+constexpr int ROWS = 64;              // tokens of an 8x8 window: the rows of every block tile
 constexpr int HD = 24;                // head_dim
-constexpr int TM = 64;                // rows of a block tile
-constexpr int TN = 96;                // columns of a block tile: 4 heads of 24
-constexpr int TK = 32;                // depth of a staged slab
-constexpr int RM = 4;                 // rows per thread
-constexpr int CX = 16;                // threads across the columns of a tile
-constexpr int RN = TN / CX;           // columns per thread
-constexpr int A_LD = TK + 1;          // padded row stride of the staged A slab
-constexpr int QKV_LD = TN + 1;        // padded row stride of the staged q, k, v
-constexpr int HEADS_PER_BLOCK = TN / HD;
-constexpr int KEYS_PER_THREAD = WIN / 4;
+constexpr int GROUP = 96;             // columns of 4 heads: the attention core's tile width
+constexpr int HEADS_PER_BLOCK = GROUP / HD;
+constexpr int QKV_LD = GROUP + 4;     // padded row stride of the staged q, k, v
+constexpr int HIDDEN_CHUNK = 96;      // hidden columns kept on chip at a time
+constexpr int H_LD = HIDDEN_CHUNK + 4;
+constexpr int CORE_KT = 16;           // slab depths of the products: q, k and v
+constexpr int WIDE_KT = 16;           // proj and fc2 in the MLP kernel ([KT, C] weight slabs)
+constexpr int FC1_KT = 32;
+constexpr int PROJ_KT = 32;           // proj_residual_kernel
 constexpr float LN_EPS = 1e-5f;
-
-static_assert(THREADS / CX * RM == TM, "the register tiles cover the block tile's rows");
-static_assert(THREADS == 4 * WIN, "four threads per query row");
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -75,25 +90,74 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Two-pass LayerNorm statistics of rows [row0, row0 + TM) of a row-major [m, k] matrix: the
-// mean and 1 / sqrt(var + eps) of each row, one warp per row. Rows at or past m get zeros.
-__device__ __forceinline__ void row_stats(const float* __restrict__ a, long long m, int k,
-                                          long long row0, float* mean_s, float* rstd_s) {
+__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// a = hi + lo with hi = tf32(a) and lo = tf32(a - hi), both rounded to nearest with ties away
+// from zero. hi is formed with two integer operations (add half a TF32 ulp to the magnitude
+// bits, clear the 13 low bits), which gives the bits of cvt.rna.tf32.f32 for every finite a and
+// is cheaper than the conversion; lo takes cvt.rna itself.
+__device__ __forceinline__ void split_tf32(float a, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(a) + 0x1000u) & 0xffffe000u;
+  const float rest = a - __uint_as_float(hi);
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(rest));
+}
+
+// d += a @ b for one m16n8k8 TF32 tile (a row-major 16 x 8, b column-major 8 x 8).
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d += a @ b for one k-step in 3xTF32: the small cross terms first, then hi*hi, into a
+// zeroed fragment that a float32 add folds into d. The tensor core aligns its addends to the
+// largest and drops the bits below, so a long chain into a large accumulator (the MLP's
+// starts at x2) loses up to an ulp of it per product; a fresh fragment a k-step keeps that
+// loss relative to the k-step's own partial sum, and d rounds to nearest.
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&ahi)[4],
+                                           const uint32_t (&alo)[4], const uint32_t (&bhi)[2],
+                                           const uint32_t (&blo)[2]) {
+  float p[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  mma_tf32(p, alo, bhi);
+  mma_tf32(p, ahi, blo);
+  mma_tf32(p, ahi, bhi);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) d[e] += p[e];
+}
+
+__device__ __forceinline__ float gelu(float v) {
+  return 0.5f * v * (1.0f + erff(v * 0.70710678118654752f));
+}
+
+// Two-pass LayerNorm statistics of the 64 rows of a [64, k] matrix with row stride lda (device
+// or shared memory): the mean and 1 / sqrt(var + eps) of each row, one warp per row.
+template <int WARPS>
+__device__ __forceinline__ void row_stats(const float* a, int lda, int k, float* mean_s,
+                                          float* rstd_s) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int r = warp; r < TM; r += THREADS / 32) {
-    float mean = 0.0f, rstd = 0.0f;
-    if (row0 + r < m) {
-      const float* p = a + (row0 + r) * k;
-      float s = 0.0f;
-      for (int c = lane; c < k; c += 32) s += p[c];
-      mean = warp_sum(s) / k;
-      float v = 0.0f;
-      for (int c = lane; c < k; c += 32) {
-        const float d = p[c] - mean;
-        v = fmaf(d, d, v);
-      }
-      rstd = 1.0f / sqrtf(warp_sum(v) / k + LN_EPS);
+  for (int r = warp; r < ROWS; r += WARPS) {
+    const float* p = a + (long long)r * lda;
+    float s = 0.0f;
+    for (int c = lane; c < k; c += 32) s += p[c];
+    const float mean = warp_sum(s) / k;
+    float v = 0.0f;
+    for (int c = lane; c < k; c += 32) {
+      const float d = p[c] - mean;
+      v = fmaf(d, d, v);
     }
+    const float rstd = 1.0f / sqrtf(warp_sum(v) / k + LN_EPS);
     if (lane == 0) {
       mean_s[r] = mean;
       rstd_s[r] = rstd;
@@ -101,91 +165,141 @@ __device__ __forceinline__ void row_stats(const float* __restrict__ a, long long
   }
 }
 
-// acc += op(A)[row0 : row0 + TM, 0 : k] @ W[0 : k, col0 : col0 + TN], where A is row-major
-// [m, k] (rows at or past m read as zero), W row-major [k, ldw], and op is the identity or,
-// with LN, the LayerNorm (x - mean) * rstd * g + b of the row statistics in shared memory.
-// Thread (ty, tx) owns rows ty*RM + i and columns tx + CX*j of the tile. k % TK == 0.
-template <bool LN>
-__device__ __forceinline__ void tile_gemm(const float* __restrict__ a, long long m, int k,
-                                          long long row0, const float* __restrict__ w, int ldw,
-                                          int col0, const float* mean_s, const float* rstd_s,
-                                          const float* __restrict__ g,
-                                          const float* __restrict__ b, float* a_s, float* w_s,
-                                          float (&acc)[RM][RN]) {
-  const int tx = threadIdx.x % CX, ty = threadIdx.x / CX;
-  for (int k0 = 0; k0 < k; k0 += TK) {
-    for (int i = threadIdx.x; i < TM * TK; i += THREADS) {
-      const int r = i / TK, kk = i % TK;
-      float v = 0.0f;
-      if (row0 + r < m) {
-        v = a[(row0 + r) * k + k0 + kk];
-        if (LN) v = (v - mean_s[r]) * rstd_s[r] * g[k0 + kk] + b[k0 + kk];
+constexpr int cmax(int a, int b) { return a > b ? a : b; }
+
+// Floats of block_mma's two-stage ring: per stage a [64, KT] slab of A (when streamed) and a
+// [KT, NT] slab of W, with padded rows.
+template <int NT, int KT, bool A_STREAM>
+constexpr int ring_floats() {
+  return 2 * ((A_STREAM ? ROWS * (KT + 4) : 0) + KT * (NT + 8));
+}
+
+// block_mma's warp tiling of a [64, NT] tile over WARPS warps: 2 warp rows of 32 (two m16
+// tiles) by WARPS / 2 warp columns of NT / (WARPS / 2) (N_TILES n8 tiles).
+template <int NT, int WARPS>
+struct Tiling {
+  static constexpr int COLS = WARPS / 2;
+  static constexpr int WN = NT / COLS;
+  static constexpr int N_TILES = WN / 8;
+  static_assert(WARPS % 2 == 0 && NT % (8 * COLS) == 0, "whole n8 tiles per warp");
+};
+
+// Calls f(row, col, acc[..][0 or 2], acc[..][1 or 3]) for the two neighbouring columns (col,
+// col + 1) of each row that this thread holds of a [64, NT] block_mma accumulator.
+template <int NT, int WARPS, class F>
+__device__ __forceinline__ void for_each_pair(
+    float (&acc)[2][Tiling<NT, WARPS>::N_TILES][4], F&& f) {
+  using T = Tiling<NT, WARPS>;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int row0 = 32 * (warp / T::COLS) + lane / 4;
+  const int col0 = (warp % T::COLS) * T::WN + 2 * (lane % 4);
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+    for (int nt = 0; nt < T::N_TILES; ++nt) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        f(row0 + 16 * mt + 8 * h, col0 + 8 * nt, acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
       }
-      a_s[r * A_LD + kk] = v;
     }
-    for (int i = threadIdx.x; i < TK * TN; i += THREADS) {
-      const int kk = i / TN, c = i % TN;
-      w_s[i] = w[(long long)(k0 + kk) * ldw + col0 + c];
+  }
+}
+
+// The one GEMM building block: acc += op(A)[0:64, 0:k] @ W[0:k, col0:col0+NT] in 3xTF32 on
+// the tensor cores. W is row-major with ldw floats a row, in device memory. A is either
+// resident in shared memory (A_STREAM false: a, lda) or in device memory (A_STREAM true: 64
+// rows of lda floats from a), streamed beside W; with LN the LayerNorm
+// (v - mean_s[r]) * rstd_s[r] * ln_g[k] + ln_b[k] is applied to each streamed slab in place.
+// WARPS warps tile the output as Tiling says. k % KT == 0; col0, ldw and lda are multiples of 4
+// and the pointers 16-byte
+// aligned (cp.async moves 16 bytes). Starts and ends with the ring free: the caller
+// synchronises before it when it has just written a resident A.
+template <int NT, int KT, int WARPS, bool A_STREAM, bool LN>
+__device__ __forceinline__ void block_mma(const float* a, int lda, int k,
+                                          const float* __restrict__ w, int ldw, int col0,
+                                          float* ring, const float* mean_s, const float* rstd_s,
+                                          const float* __restrict__ ln_g,
+                                          const float* __restrict__ ln_b,
+                                          float (&acc)[2][Tiling<NT, WARPS>::N_TILES][4]) {
+  using T = Tiling<NT, WARPS>;
+  constexpr int NTHREADS = 32 * WARPS;
+  static_assert(KT % 8 == 0, "whole k-steps per slab");
+  static_assert(A_STREAM || !LN, "the LayerNorm is applied to streamed slabs");
+  constexpr int A_LD = KT + 4;  // 20 or 36 floats: conflict-free A fragments
+  constexpr int W_LD = NT + 8;  // 8 mod 32 floats: conflict-free B fragments
+  constexpr int A_FLOATS = A_STREAM ? ROWS * A_LD : 0;
+  constexpr int STAGE = A_FLOATS + KT * W_LD;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int arow = 32 * (warp / T::COLS) + g;
+  const int bcol = (warp % T::COLS) * T::WN + g;
+  const int slabs = k / KT;
+
+  auto load = [&](int s) {
+    float* st = ring + (s & 1) * STAGE;
+    const int k0 = s * KT;
+    if (A_STREAM) {
+      for (int i = threadIdx.x; i < ROWS * KT / 4; i += NTHREADS) {
+        const int r = i / (KT / 4), c = 4 * (i % (KT / 4));
+        cp_async16(st + r * A_LD + c, a + (long long)r * lda + k0 + c);
+      }
+    }
+    float* ws = st + A_FLOATS;
+    for (int i = threadIdx.x; i < KT * NT / 4; i += NTHREADS) {
+      const int r = i / (NT / 4), c = 4 * (i % (NT / 4));
+      cp_async16(ws + r * W_LD + c, w + (long long)(k0 + r) * ldw + col0 + c);
+    }
+    cp_async_commit();
+  };
+
+  load(0);
+  for (int s = 0; s < slabs; ++s) {
+    if (s + 1 < slabs) {
+      load(s + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
     __syncthreads();
-#pragma unroll 4
-    for (int kk = 0; kk < TK; ++kk) {
-      float av[RM], wv[RN];
+    float* st = ring + (s & 1) * STAGE;
+    if (LN) {
+      for (int i = threadIdx.x; i < ROWS * KT; i += NTHREADS) {
+        const int r = i / KT, c = i % KT;
+        float* v = st + r * A_LD + c;
+        *v = (*v - mean_s[r]) * rstd_s[r] * ln_g[s * KT + c] + ln_b[s * KT + c];
+      }
+      __syncthreads();
+    }
+    const float* as = A_STREAM ? st : a + s * KT;
+    const int a_ld = A_STREAM ? A_LD : lda;
+    const float* ws = st + A_FLOATS;
 #pragma unroll
-      for (int i = 0; i < RM; ++i) av[i] = a_s[(ty * RM + i) * A_LD + kk];
+    for (int kk = 0; kk < KT; kk += 8) {
+      uint32_t ahi[2][4], alo[2][4];
 #pragma unroll
-      for (int j = 0; j < RN; ++j) wv[j] = w_s[kk * TN + tx + CX * j];
+      for (int mt = 0; mt < 2; ++mt) {
+        const float* p = as + (arow + 16 * mt) * a_ld + kk + t;
+        split_tf32(p[0], ahi[mt][0], alo[mt][0]);               // (g, t)
+        split_tf32(p[8 * a_ld], ahi[mt][1], alo[mt][1]);        // (g + 8, t)
+        split_tf32(p[4], ahi[mt][2], alo[mt][2]);               // (g, t + 4)
+        split_tf32(p[8 * a_ld + 4], ahi[mt][3], alo[mt][3]);    // (g + 8, t + 4)
+      }
 #pragma unroll
-      for (int i = 0; i < RM; ++i) {
+      for (int nt = 0; nt < T::N_TILES; ++nt) {
+        const float* p = ws + (kk + t) * W_LD + bcol + 8 * nt;
+        uint32_t bhi[2], blo[2];
+        split_tf32(p[0], bhi[0], blo[0]);           // (k = t, n = g)
+        split_tf32(p[4 * W_LD], bhi[1], blo[1]);    // (k = t + 4, n = g)
 #pragma unroll
-        for (int j = 0; j < RN; ++j) acc[i][j] = fmaf(av[i], wv[j], acc[i][j]);
+        for (int mt = 0; mt < 2; ++mt) mma_3xtf32(acc[mt][nt], ahi[mt], alo[mt], bhi, blo);
       }
     }
     __syncthreads();
   }
 }
 
-// out[m, n] = epilogue(op(A)[m, k] @ W[k, n] + bias[n]); grid (ceil(m / TM), n / TN).
-// LN: op is the LayerNorm with (ln_g, ln_b); GELU: exact erf GELU; RESID: + resid[m, n].
-template <bool LN, bool GELU, bool RESID>
-__global__ void __launch_bounds__(THREADS)
-rowtile_gemm_kernel(const float* __restrict__ a, const float* __restrict__ w,
-                    const float* __restrict__ bias, const float* __restrict__ ln_g,
-                    const float* __restrict__ ln_b, const float* __restrict__ resid,
-                    float* __restrict__ out, long long m, int k, int n) {
-  __shared__ float a_s[TM * A_LD];
-  __shared__ float w_s[TK * TN];
-  __shared__ float mean_s[TM], rstd_s[TM];
-  const long long row0 = (long long)blockIdx.x * TM;
-  const int col0 = blockIdx.y * TN;
-  if (LN) {
-    row_stats(a, m, k, row0, mean_s, rstd_s);
-    __syncthreads();
-  }
-  float acc[RM][RN];
-#pragma unroll
-  for (int i = 0; i < RM; ++i) {
-#pragma unroll
-    for (int j = 0; j < RN; ++j) acc[i][j] = 0.0f;
-  }
-  tile_gemm<LN>(a, m, k, row0, w, n, col0, mean_s, rstd_s, ln_g, ln_b, a_s, w_s, acc);
-  const int tx = threadIdx.x % CX, ty = threadIdx.x / CX;
-#pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    const long long row = row0 + ty * RM + i;
-    if (row >= m) continue;
-#pragma unroll
-    for (int j = 0; j < RN; ++j) {
-      const int col = col0 + tx + CX * j;
-      float v = acc[i][j] + bias[col];
-      if (GELU) v = 0.5f * v * (1.0f + erff(v * 0.70710678118654752f));
-      if (RESID) v += resid[row * n + col];
-      out[row * n + col] = v;
-    }
-  }
-}
-
-constexpr size_t CORE_SMEM_FLOATS = 2 * TM + TM * A_LD + TK * TN + 3 * TM * QKV_LD;
+constexpr int CORE_RING = ring_floats<GROUP, CORE_KT, true>();
+constexpr int CORE_SMEM_FLOATS = 2 * ROWS + 3 * ROWS * QKV_LD + CORE_RING;
 
 // attn[w*64 + r, h*24 + d] for the window w = blockIdx.x and heads 4*blockIdx.y .. +3.
 // x [bw*64, c]; wqkv [c, 3c]; bqkv [3c]; bias [heads, 64, 64]; mask [mask_count, 64, 64].
@@ -194,95 +308,230 @@ window_attention_core_kernel(const float* __restrict__ x, const float* __restric
                              const float* __restrict__ bqkv, const float* __restrict__ bias,
                              const float* __restrict__ mask, int mask_count,
                              const float* __restrict__ g1, const float* __restrict__ b1,
-                             float* __restrict__ attn, long long m, int c, float scale) {
-  extern __shared__ float smem[];
+                             float* __restrict__ attn, int c, float scale) {
+  extern __shared__ __align__(16) float smem[];
   float* mean_s = smem;
-  float* rstd_s = mean_s + TM;
-  float* a_s = rstd_s + TM;
-  float* w_s = a_s + TM * A_LD;
-  float* qkv_s = w_s + TK * TN;  // q, k, v of this block's heads: [3][TM][QKV_LD]
+  float* rstd_s = mean_s + ROWS;
+  float* qkv_s = rstd_s + ROWS;  // q, k, v of this block's heads: [3][ROWS][QKV_LD]
+  float* ring = qkv_s + 3 * ROWS * QKV_LD;
 
   const long long win = blockIdx.x;
-  const long long row0 = win * WIN;
+  const float* xw = x + win * ROWS * c;
   const int group = blockIdx.y;
-  row_stats(x, m, c, row0, mean_s, rstd_s);
+  row_stats<THREADS / 32>(xw, c, c, mean_s, rstd_s);
   __syncthreads();
 
-  const int tx = threadIdx.x % CX, ty = threadIdx.x / CX;
   for (int part = 0; part < 3; ++part) {  // q, k, v
-    const int col0 = part * c + group * TN;
-    float acc[RM][RN];
+    const int col0 = part * c + group * GROUP;
+    float acc[2][Tiling<GROUP, THREADS / 32>::N_TILES][4] = {};
+    block_mma<GROUP, CORE_KT, THREADS / 32, true, true>(xw, c, c, wqkv, 3 * c, col0, ring, mean_s,
+                                                        rstd_s, g1, b1, acc);
+    float* dst = qkv_s + part * ROWS * QKV_LD;
+    for_each_pair<GROUP, THREADS / 32>(acc, [&](int r, int col, float v0, float v1) {
+      dst[r * QKV_LD + col] = v0 + bqkv[col0 + col];
+      dst[r * QKV_LD + col + 1] = v1 + bqkv[col0 + col + 1];
+    });
+  }
+  __syncthreads();
+
+  // Attention: warp w takes head w/2 of the group and query rows 32*(w%2) .. +31, one m16
+  // tile at a time. Fragment rows are g and g + 8 of the tile, S columns (keys) 8j + 2t and
+  // 8j + 2t + 1.
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int hh = warp / 2;
+  const int h = group * HEADS_PER_BLOCK + hh;
+  const float* q_s = qkv_s + hh * HD;
+  const float* k_s = qkv_s + ROWS * QKV_LD + hh * HD;
+  const float* v_s = qkv_s + 2 * ROWS * QKV_LD + hh * HD;
+  const float* bias_h = bias + (long long)h * ROWS * ROWS;
+  const float* mask_w = mask + (long long)(win % mask_count) * ROWS * ROWS;
+#pragma unroll 1
+  for (int mt = 0; mt < 2; ++mt) {
+    const int r0 = 32 * (warp % 2) + 16 * mt;
+    float s[ROWS / 8][4] = {};  // S[r0 .. r0+15, keys 8j .. 8j+7]
 #pragma unroll
-    for (int i = 0; i < RM; ++i) {
+    for (int ks = 0; ks < HD / 8; ++ks) {
+      uint32_t ahi[4], alo[4];
+      const float* p = q_s + (r0 + g) * QKV_LD + 8 * ks + t;
+      split_tf32(p[0], ahi[0], alo[0]);
+      split_tf32(p[8 * QKV_LD], ahi[1], alo[1]);
+      split_tf32(p[4], ahi[2], alo[2]);
+      split_tf32(p[8 * QKV_LD + 4], ahi[3], alo[3]);
 #pragma unroll
-      for (int j = 0; j < RN; ++j) acc[i][j] = 0.0f;
+      for (int j = 0; j < ROWS / 8; ++j) {
+        const float* pk = k_s + (8 * j + g) * QKV_LD + 8 * ks + t;  // B[d][key] = k[key][d]
+        uint32_t bhi[2], blo[2];
+        split_tf32(pk[0], bhi[0], blo[0]);
+        split_tf32(pk[4], bhi[1], blo[1]);
+        mma_3xtf32(s[j], ahi, alo, bhi, blo);
+      }
     }
-    tile_gemm<true>(x, m, c, row0, wqkv, 3 * c, col0, mean_s, rstd_s, g1, b1, a_s, w_s, acc);
-    float* dst = qkv_s + part * TM * QKV_LD;
+    float row_max[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int i = 0; i < RM; ++i) {
+    for (int j = 0; j < ROWS / 8; ++j) {
 #pragma unroll
-      for (int j = 0; j < RN; ++j) {
-        const int col = tx + CX * j;
-        dst[(ty * RM + i) * QKV_LD + col] = acc[i][j] + bqkv[col0 + col];
+      for (int half = 0; half < 2; ++half) {
+        const int off = (r0 + g + 8 * half) * ROWS + 8 * j + 2 * t;
+        const float2 bb = *reinterpret_cast<const float2*>(bias_h + off);
+        const float2 mm = *reinterpret_cast<const float2*>(mask_w + off);
+        s[j][2 * half] = s[j][2 * half] * scale + bb.x + mm.x;
+        s[j][2 * half + 1] = s[j][2 * half + 1] * scale + bb.y + mm.y;
+        row_max[half] = fmaxf(row_max[half], fmaxf(s[j][2 * half], s[j][2 * half + 1]));
+      }
+    }
+    float row_sum[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      row_max[half] = fmaxf(row_max[half], __shfl_xor_sync(0xffffffffu, row_max[half], 1));
+      row_max[half] = fmaxf(row_max[half], __shfl_xor_sync(0xffffffffu, row_max[half], 2));
+#pragma unroll
+      for (int j = 0; j < ROWS / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          s[j][2 * half + e] = expf(s[j][2 * half + e] - row_max[half]);
+          row_sum[half] += s[j][2 * half + e];
+        }
+      }
+      row_sum[half] += __shfl_xor_sync(0xffffffffu, row_sum[half], 1);
+      row_sum[half] += __shfl_xor_sync(0xffffffffu, row_sum[half], 2);
+#pragma unroll
+      for (int j = 0; j < ROWS / 8; ++j) {
+        s[j][2 * half] /= row_sum[half];
+        s[j][2 * half + 1] /= row_sum[half];
+      }
+    }
+    // O = P v. The k-step j takes keys 8j + 2t (k index t) and 8j + 2t + 1 (k index t + 4),
+    // so the A fragment is the S fragment itself and B reads v rows in that order.
+    float o[HD / 8][4] = {};
+#pragma unroll
+    for (int j = 0; j < ROWS / 8; ++j) {
+      uint32_t ahi[4], alo[4];
+      split_tf32(s[j][0], ahi[0], alo[0]);  // (g, key 8j + 2t)
+      split_tf32(s[j][2], ahi[1], alo[1]);  // (g + 8, key 8j + 2t)
+      split_tf32(s[j][1], ahi[2], alo[2]);  // (g, key 8j + 2t + 1)
+      split_tf32(s[j][3], ahi[3], alo[3]);  // (g + 8, key 8j + 2t + 1)
+#pragma unroll
+      for (int n = 0; n < HD / 8; ++n) {
+        const float* pv = v_s + (8 * j + 2 * t) * QKV_LD + 8 * n + g;
+        uint32_t bhi[2], blo[2];
+        split_tf32(pv[0], bhi[0], blo[0]);
+        split_tf32(pv[QKV_LD], bhi[1], blo[1]);
+        mma_3xtf32(o[n], ahi, alo, bhi, blo);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const long long row = win * ROWS + r0 + g + 8 * half;
+        *reinterpret_cast<float2*>(attn + row * c + h * HD + 8 * n + 2 * t) =
+            make_float2(o[n][2 * half], o[n][2 * half + 1]);
       }
     }
   }
+}
+
+template <int C>
+constexpr int mlp_smem_floats() {
+  return 2 * ROWS + ROWS * (C + 4) + ROWS * H_LD +
+         cmax(ring_floats<C, WIDE_KT, true>(),
+              cmax(ring_floats<HIDDEN_CHUNK, FC1_KT, false>(), ring_floats<C, WIDE_KT, false>()));
+}
+
+// The rest of the block for the window blockIdx.x: out = x2 + fc2(GELU(fc1(LN2(x2)))) with
+// x2 = x + attn @ wproj + bproj. attn, x, out [bw*64, C]; wfc1 [C, 4C]; wfc2 [4C, C].
+template <int C, int MLP_WARPS = mlp_warps<C>()>
+__global__ void __launch_bounds__(32 * MLP_WARPS, 1)
+swin_mlp_kernel(const float* __restrict__ attn, const float* __restrict__ x,
+                const float* __restrict__ wproj, const float* __restrict__ bproj,
+                const float* __restrict__ g2, const float* __restrict__ b2,
+                const float* __restrict__ wfc1, const float* __restrict__ bfc1,
+                const float* __restrict__ wfc2, const float* __restrict__ bfc2,
+                float* __restrict__ out) {
+  constexpr int XN_LD = C + 4;
+  extern __shared__ __align__(16) float smem[];
+  float* mean_s = smem;
+  float* rstd_s = mean_s + ROWS;
+  float* xn_s = rstd_s + ROWS;          // [ROWS][XN_LD]: x2, then LN2(x2)
+  float* h_s = xn_s + ROWS * XN_LD;     // [ROWS][H_LD]: one hidden chunk after GELU
+  float* ring = h_s + ROWS * H_LD;
+  const long long row0 = (long long)blockIdx.x * ROWS;
+  const float* xw = x + row0 * C;
+
+  constexpr int NTHREADS = 32 * MLP_WARPS;
+  // x2 = x + (attn @ wproj + bproj), held in acc (and copied to xn_s for LN2).
+  float acc[2][Tiling<C, MLP_WARPS>::N_TILES][4] = {};
+  block_mma<C, WIDE_KT, MLP_WARPS, true, false>(attn + row0 * C, C, C, wproj, C, 0, ring, nullptr,
+                                                nullptr, nullptr, nullptr, acc);
+  for_each_pair<C, MLP_WARPS>(acc, [&](int r, int col, float& v0, float& v1) {
+    const float2 xr = *reinterpret_cast<const float2*>(xw + r * C + col);
+    v0 = xr.x + (v0 + bproj[col]);
+    v1 = xr.y + (v1 + bproj[col + 1]);
+    xn_s[r * XN_LD + col] = v0;
+    xn_s[r * XN_LD + col + 1] = v1;
+  });
+  __syncthreads();
+  row_stats<MLP_WARPS>(xn_s, XN_LD, C, mean_s, rstd_s);
+  __syncthreads();
+  for (int i = threadIdx.x; i < ROWS * C; i += NTHREADS) {
+    const int r = i / C, col = i % C;
+    float* v = xn_s + r * XN_LD + col;
+    *v = (*v - mean_s[r]) * rstd_s[r] * g2[col] + b2[col];
+  }
+  // The fc2 accumulator starts as x2 + b_fc2: the residual needs no second copy of x2.
+  for_each_pair<C, MLP_WARPS>(acc, [&](int, int col, float& v0, float& v1) {
+    v0 += bfc2[col];
+    v1 += bfc2[col + 1];
+  });
   __syncthreads();
 
-  // Attention: query row r, keys j = quarter + 4*jj (neighbouring quarters read neighbouring
-  // rows of k and v, so their shared-memory banks differ).
-  const int r = threadIdx.x / 4, quarter = threadIdx.x % 4;
-  const float* q_s = qkv_s;
-  const float* k_s = qkv_s + TM * QKV_LD;
-  const float* v_s = qkv_s + 2 * TM * QKV_LD;
-  const float* mrow = mask + ((long long)(win % mask_count) * WIN + r) * WIN;
-  for (int hh = 0; hh < HEADS_PER_BLOCK; ++hh) {
-    const int h = group * HEADS_PER_BLOCK + hh;
-    const int d0 = hh * HD;
-    const float* brow = bias + ((long long)h * WIN + r) * WIN;
-    float q[HD];
-#pragma unroll
-    for (int d = 0; d < HD; ++d) q[d] = q_s[r * QKV_LD + d0 + d];
-    float s[KEYS_PER_THREAD];
-    float row_max = -INFINITY;
-#pragma unroll
-    for (int jj = 0; jj < KEYS_PER_THREAD; ++jj) {
-      const int j = quarter + 4 * jj;
-      float dot = 0.0f;
-#pragma unroll
-      for (int d = 0; d < HD; ++d) dot = fmaf(q[d], k_s[j * QKV_LD + d0 + d], dot);
-      s[jj] = dot * scale + brow[j] + mrow[j];
-      row_max = fmaxf(row_max, s[jj]);
-    }
-    row_max = fmaxf(row_max, __shfl_xor_sync(0xffffffffu, row_max, 1));
-    row_max = fmaxf(row_max, __shfl_xor_sync(0xffffffffu, row_max, 2));
-    float row_sum = 0.0f;
-#pragma unroll
-    for (int jj = 0; jj < KEYS_PER_THREAD; ++jj) {
-      s[jj] = expf(s[jj] - row_max);
-      row_sum += s[jj];
-    }
-    row_sum += __shfl_xor_sync(0xffffffffu, row_sum, 1);
-    row_sum += __shfl_xor_sync(0xffffffffu, row_sum, 2);
-    float o[HD];
-#pragma unroll
-    for (int d = 0; d < HD; ++d) o[d] = 0.0f;
-#pragma unroll
-    for (int jj = 0; jj < KEYS_PER_THREAD; ++jj) {
-      const int j = quarter + 4 * jj;
-      const float p = s[jj] / row_sum;
-#pragma unroll
-      for (int d = 0; d < HD; ++d) o[d] = fmaf(p, v_s[j * QKV_LD + d0 + d], o[d]);
-    }
-    float* orow = attn + (row0 + r) * c + h * HD;
-#pragma unroll
-    for (int d = 0; d < HD; ++d) {
-      o[d] += __shfl_xor_sync(0xffffffffu, o[d], 1);
-      o[d] += __shfl_xor_sync(0xffffffffu, o[d], 2);
-      if ((d & 3) == quarter) orow[d] = o[d];
-    }
+  for (int j0 = 0; j0 < 4 * C; j0 += HIDDEN_CHUNK) {
+    float hacc[2][Tiling<HIDDEN_CHUNK, MLP_WARPS>::N_TILES][4] = {};
+    block_mma<HIDDEN_CHUNK, FC1_KT, MLP_WARPS, false, false>(xn_s, XN_LD, C, wfc1, 4 * C, j0, ring,
+                                                             nullptr, nullptr, nullptr, nullptr,
+                                                             hacc);
+    for_each_pair<HIDDEN_CHUNK, MLP_WARPS>(hacc, [&](int r, int col, float v0, float v1) {
+      h_s[r * H_LD + col] = gelu(v0 + bfc1[j0 + col]);
+      h_s[r * H_LD + col + 1] = gelu(v1 + bfc1[j0 + col + 1]);
+    });
+    __syncthreads();
+    block_mma<C, WIDE_KT, MLP_WARPS, false, false>(h_s, H_LD, HIDDEN_CHUNK,
+                                                   wfc2 + (long long)j0 * C, C, 0, ring, nullptr,
+                                                   nullptr, nullptr, nullptr, acc);
   }
+  for_each_pair<C, MLP_WARPS>(acc, [&](int r, int col, float v0, float v1) {
+    *reinterpret_cast<float2*>(out + (row0 + r) * C + col) = make_float2(v0, v1);
+  });
+}
+
+constexpr int PROJ_SMEM_FLOATS = ring_floats<GROUP, PROJ_KT, true>();
+
+// out = x + (attn @ wproj + bproj) for the window blockIdx.x and output columns
+// 96*blockIdx.y .. +95. attn, x, out [bw*64, c]; wproj [c, c].
+__global__ void __launch_bounds__(THREADS)
+proj_residual_kernel(const float* __restrict__ attn, const float* __restrict__ x,
+                     const float* __restrict__ wproj, const float* __restrict__ bproj,
+                     float* __restrict__ out, int c) {
+  extern __shared__ __align__(16) float smem[];
+  const long long row0 = (long long)blockIdx.x * ROWS;
+  const int col0 = blockIdx.y * GROUP;
+  float acc[2][Tiling<GROUP, THREADS / 32>::N_TILES][4] = {};
+  block_mma<GROUP, PROJ_KT, THREADS / 32, true, false>(attn + row0 * c, c, c, wproj, c, col0,
+                                                       smem, nullptr, nullptr, nullptr, nullptr,
+                                                       acc);
+  for_each_pair<GROUP, THREADS / 32>(acc, [&](int r, int col, float v0, float v1) {
+    const long long o = (row0 + r) * c + col0 + col;
+    const float2 xr = *reinterpret_cast<const float2*>(x + o);
+    *reinterpret_cast<float2*>(out + o) =
+        make_float2(xr.x + (v0 + bproj[col0 + col]), xr.y + (v1 + bproj[col0 + col + 1]));
+  });
+}
+
+template <class Kernel>
+int set_smem(Kernel kernel, int floats) {
+  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   floats * (int)sizeof(float));
 }
 
 int check_args(int bw, int c, int heads, int mask_count) {
@@ -295,23 +544,24 @@ int check_args(int bw, int c, int heads, int mask_count) {
 int launch_core(const float* x, const float* wqkv, const float* bqkv, const float* bias,
                 const float* mask, int mask_count, const float* g1, const float* b1, float* attn,
                 int bw, int c, int heads, cudaStream_t stream) {
-  const size_t smem = CORE_SMEM_FLOATS * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(window_attention_core_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
+  int err = set_smem(window_attention_core_kernel, CORE_SMEM_FLOATS);
+  if (err) return err;
   const float scale = 1.0f / sqrtf((float)HD);
-  window_attention_core_kernel<<<dim3(bw, heads / HEADS_PER_BLOCK), THREADS, smem, stream>>>(
-      x, wqkv, bqkv, bias, mask, mask_count, g1, b1, attn, (long long)bw * WIN, c, scale);
+  window_attention_core_kernel<<<dim3(bw, heads / HEADS_PER_BLOCK), THREADS,
+                                 CORE_SMEM_FLOATS * sizeof(float), stream>>>(
+      x, wqkv, bqkv, bias, mask, mask_count, g1, b1, attn, c, scale);
   return (int)cudaGetLastError();
 }
 
-template <bool LN, bool GELU, bool RESID>
-int launch_gemm(const float* a, const float* w, const float* bias, const float* ln_g,
-                const float* ln_b, const float* resid, float* out, long long m, int k, int n,
-                cudaStream_t stream) {
-  const dim3 grid((unsigned)((m + TM - 1) / TM), n / TN);
-  rowtile_gemm_kernel<LN, GELU, RESID><<<grid, THREADS, 0, stream>>>(
-      a, w, bias, ln_g, ln_b, resid, out, m, k, n);
+template <int C>
+int launch_mlp(const float* attn, const float* x, const float* wproj, const float* bproj,
+               const float* g2, const float* b2, const float* wfc1, const float* bfc1,
+               const float* wfc2, const float* bfc2, float* out, int bw, cudaStream_t stream) {
+  constexpr int floats = mlp_smem_floats<C>();
+  int err = set_smem(swin_mlp_kernel<C>, floats);
+  if (err) return err;
+  swin_mlp_kernel<C><<<bw, 32 * mlp_warps<C>(), floats * sizeof(float), stream>>>(
+      attn, x, wproj, bproj, g2, b2, wfc1, bfc1, wfc2, bfc2, out);
   return (int)cudaGetLastError();
 }
 
@@ -329,32 +579,36 @@ int window_attention_launch(const float* x, const float* wqkv, const float* bqkv
   int err = check_args(bw, c, heads, mask_count);
   if (err) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long m = (long long)bw * WIN;
   err = launch_core(x, wqkv, bqkv, bias, mask, mask_count, g1, b1, attn, bw, c, heads, s);
   if (err) return err;
-  return launch_gemm<false, false, true>(attn, wproj, bproj, nullptr, nullptr, x, out, m, c, c, s);
+  err = set_smem(proj_residual_kernel, PROJ_SMEM_FLOATS);
+  if (err) return err;
+  proj_residual_kernel<<<dim3(bw, c / GROUP), THREADS, PROJ_SMEM_FLOATS * sizeof(float), s>>>(
+      attn, x, wproj, bproj, out, c);
+  return (int)cudaGetLastError();
 }
 
-// The whole block into out [bw, 64, c]; attn and x2 [bw*64, c] and hidden [bw*64, 4c] are
-// scratch. Same conventions as window_attention_launch.
+// The whole block into out [bw, 64, c], c = 96, 192 or 384, in two launches; attn [bw*64, c]
+// is scratch. Same conventions as window_attention_launch.
 int swin_block_launch(const float* x, const float* wqkv, const float* bqkv, const float* wproj,
                       const float* bproj, const float* bias, const float* mask, int mask_count,
                       const float* g1, const float* b1, const float* g2, const float* b2,
                       const float* wfc1, const float* bfc1, const float* wfc2, const float* bfc2,
-                      float* attn, float* x2, float* hidden, float* out, int bw, int c, int heads,
-                      void* stream) {
+                      float* attn, float* out, int bw, int c, int heads, void* stream) {
   int err = check_args(bw, c, heads, mask_count);
   if (err) return err;
+  if (c != 96 && c != 192 && c != 384) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long m = (long long)bw * WIN;
   err = launch_core(x, wqkv, bqkv, bias, mask, mask_count, g1, b1, attn, bw, c, heads, s);
   if (err) return err;
-  err = launch_gemm<false, false, true>(attn, wproj, bproj, nullptr, nullptr, x, x2, m, c, c, s);
-  if (err) return err;
-  err = launch_gemm<true, true, false>(x2, wfc1, bfc1, g2, b2, nullptr, hidden, m, c, 4 * c, s);
-  if (err) return err;
-  return launch_gemm<false, false, true>(hidden, wfc2, bfc2, nullptr, nullptr, x2, out, m, 4 * c,
-                                         c, s);
+  switch (c) {
+    case 96:
+      return launch_mlp<96>(attn, x, wproj, bproj, g2, b2, wfc1, bfc1, wfc2, bfc2, out, bw, s);
+    case 192:
+      return launch_mlp<192>(attn, x, wproj, bproj, g2, b2, wfc1, bfc1, wfc2, bfc2, out, bw, s);
+    default:
+      return launch_mlp<384>(attn, x, wproj, bproj, g2, b2, wfc1, bfc1, wfc2, bfc2, out, bw, s);
+  }
 }
 
 }  // extern "C"

@@ -5,8 +5,9 @@ library with a plain C interface; no PyTorch header is included, so a build
 takes seconds rather than the minutes a torch extension build takes. The
 sources compile in parallel (one nvcc process each, all started together)
 and are then linked. The library lands in _build/ (listed in .gitignore),
-named by a hash of the sources and flags, so an edited source is rebuilt
-and an unchanged one is loaded as it is. A missing nvcc, a failed build or
+named by a hash of the sources, the headers they include (csrc/*.cuh) and
+the flags, so an edited source or header is rebuilt and an unchanged tree
+is loaded as it is. A missing nvcc, a failed build or
 a failed load raises.
 """
 
@@ -47,9 +48,9 @@ def find_nvcc() -> str:
 
 
 def library_path() -> Path:
-    """Where the library for the current sources and flags lives."""
+    """Where the library for the current sources, headers and flags lives."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sorted(CSRC_DIR.glob("*.cu")):
+    for src in sorted([*CSRC_DIR.glob("*.cu"), *CSRC_DIR.glob("*.cuh")]):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     return BUILD_DIR / f"libfad_kernels_{digest.hexdigest()[:16]}.so"
@@ -114,13 +115,13 @@ def load_library() -> ctypes.CDLL:
         ctypes.c_void_p,  # cudaStream_t
     ]
     lib.vggish_logmel_launch.restype = ctypes.c_int
-    lib.pann_logmel_nbin_pad.argtypes = [ctypes.c_int]  # n_fft
-    lib.pann_logmel_nbin_pad.restype = ctypes.c_int
     lib.pann_logmel_launch.argtypes = [
         ctypes.c_void_p,  # wave
         ctypes.c_void_p,  # n_valid (int32)
-        ctypes.c_void_p,  # dft (cos, sin) pairs
-        ctypes.c_void_p,  # mel
+        ctypes.c_void_p,  # window
+        ctypes.c_void_p,  # twiddle (cos, -sin) pairs
+        ctypes.c_void_p,  # mel bands (start, count, offset), int32
+        ctypes.c_void_p,  # mel taps
         ctypes.c_void_p,  # out
         ctypes.c_int,  # batch
         ctypes.c_longlong,  # num_samples
@@ -161,8 +162,6 @@ def load_library() -> ctypes.CDLL:
         ctypes.c_void_p,  # w_fc2
         ctypes.c_void_p,  # b_fc2
         ctypes.c_void_p,  # attn scratch
-        ctypes.c_void_p,  # x2 scratch
-        ctypes.c_void_p,  # hidden scratch
         ctypes.c_void_p,  # out
         ctypes.c_int,  # windows (BW)
         ctypes.c_int,  # C

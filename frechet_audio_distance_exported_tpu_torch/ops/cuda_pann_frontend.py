@@ -48,19 +48,36 @@ def _mel_tensor(target_sample_rate: int, device: torch.device) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=16)
-def _kernel_operands(target_sample_rate: int, device: torch.device, nbin_pad: int):
-    """(dft [n_fft, nbin_pad, 2] (cos, sin) pairs, mel [n_fft/2 + 1, 64]) on ``device``.
+def _kernel_operands(target_sample_rate: int, device: torch.device):
+    """The kernel's tables as contiguous tensors on ``device``, copied once
+    (the kernel reads them through raw row-major pointers): (window [n_fft]
+    f32, twiddle [n_fft, 2] f32, bands [64, 3] int32, taps [nnz] f32).
 
-    The windowed DFT matrix is the chunked matrix of the plain version
-    without its zero rows (K = n_fft), with cos and sin of a bin side by
-    side and zero bins past n_fft/2."""
+    - window: the periodic Hann window in the float32 values of the plain
+      version's windowed DFT matrix (its bin-0 column).
+    - twiddle: exp(-2 pi i m / n_fft) for m < n_fft as (cos, -sin) pairs,
+      computed in float64 and rounded once to float32. The FFT of n_fft/2
+      points reads every other entry; the split step reads the first
+      n_fft/2 + 1.
+    - bands, taps: the Slaney mel as a sparse matrix. Band j's nonzero taps
+      are the contiguous bins start .. start + count - 1 (a triangle); row j
+      of bands is (start, count, offset), and taps[offset : offset + count]
+      are its weights, the float32 values of slaney_mel_matrix. A band
+      without taps has count 0."""
     n_fft, _, _ = _geometry(target_sample_rate)
-    cos_m, sin_m = dsp.windowed_dft_matrices(n_fft, n_fft)
-    nbin = cos_m.shape[1]
-    pairs = np.zeros((n_fft, nbin_pad, 2), np.float32)
-    pairs[:, :nbin, 0] = cos_m
-    pairs[:, :nbin, 1] = sin_m
-    return torch.from_numpy(pairs).to(device), _mel_tensor(target_sample_rate, device)
+    window = dsp.periodic_hann(n_fft).astype(np.float32)
+    angle = 2.0 * np.pi * np.arange(n_fft) / n_fft
+    twiddle = np.stack([np.cos(angle), -np.sin(angle)], axis=1).astype(np.float32)
+    mel = _slaney_mel_np(target_sample_rate)
+    bands, taps = [], []
+    for j in range(mel.shape[1]):
+        nonzero = np.flatnonzero(mel[:, j])
+        start = int(nonzero[0]) if nonzero.size else 0
+        count = int(nonzero[-1]) + 1 - start if nonzero.size else 0
+        bands.append((start, count, sum(len(t) for t in taps)))
+        taps.append(mel[start : start + count, j])
+    tables = (window, twiddle, np.asarray(bands, np.int32), np.concatenate(taps))
+    return tuple(torch.from_numpy(np.ascontiguousarray(t)).to(device) for t in tables)
 
 
 def fused_pann_logmel_reference(
@@ -113,21 +130,14 @@ def fused_pann_logmel(
         raise ValueError(f"batch {batch} exceeds the kernel's grid limit {_MAX_GRID_Y}")
 
     lib = _build.load_library()
-    nbin_pad = lib.pann_logmel_nbin_pad(n_fft)
-    if nbin_pad <= 0:
-        raise ValueError(f"the PANN log-mel kernel has no instantiation for n_fft {n_fft}")
-    dft, mel = _kernel_operands(target_sample_rate, wave.device, nbin_pad)
+    tables = _kernel_operands(target_sample_rate, wave.device)
     out = torch.empty((batch, num_frames, mels), dtype=torch.float32, device=wave.device)
     if batch == 0 or num_frames == 0:
         return out
     with torch.cuda.device(wave.device):
         stream = torch.cuda.current_stream(wave.device).cuda_stream
         err = lib.pann_logmel_launch(
-            ctypes.c_void_p(wave.data_ptr()),
-            ctypes.c_void_p(n_valid_frames.data_ptr()),
-            ctypes.c_void_p(dft.data_ptr()),
-            ctypes.c_void_p(mel.data_ptr()),
-            ctypes.c_void_p(out.data_ptr()),
+            *(ctypes.c_void_p(t.data_ptr()) for t in (wave, n_valid_frames, *tables, out)),
             batch,
             num_samples,
             num_frames,

@@ -40,6 +40,10 @@ LN_EPS = 1e-5
 KERNEL_TOKENS = 64
 KERNEL_HEAD_DIM = 24
 KERNEL_HEAD_GROUP = 4
+# The widths whose whole block the swin_block_fused kernel keeps on chip
+# (CLAP stages 1-3); stage 4 runs window_attention_fused.
+KERNEL_BLOCK_WIDTHS = (96, 192, 384)
+KERNEL_ALIGN = 16  # bytes: the kernels stream their operands with 16-byte cp.async
 
 
 def _layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:
@@ -124,8 +128,12 @@ def _check_kernel_shapes(name: str, x: torch.Tensor, heads: int, operands: dict)
             f"the {name} kernel takes N = {KERNEL_TOKENS}, head_dim {KERNEL_HEAD_DIM} and heads "
             f"a multiple of {KERNEL_HEAD_GROUP}; got N {n}, C {c}, heads {heads}"
         )
+    if name == "swin_block_fused" and c not in KERNEL_BLOCK_WIDTHS:
+        raise ValueError(f"the swin_block_fused kernel takes C in {KERNEL_BLOCK_WIDTHS}, got {c}")
     if not all(t.is_contiguous() for t in (x, *operands.values())):
         raise ValueError(f"{name} needs contiguous tensors on the card")
+    if any(t.data_ptr() % KERNEL_ALIGN for t in (x, *operands.values())):
+        raise ValueError(f"{name} needs {KERNEL_ALIGN}-byte aligned tensors on the card")
 
 
 def _ptrs(*tensors: torch.Tensor) -> list:
@@ -138,11 +146,11 @@ def _run(name: str, x: torch.Tensor, operands: dict, heads: int, num_windows: in
     the plain version, and on the card call launch(lib, out, stream), which
     queues the kernel's launches and returns a cudaError code.
 
-    launch allocates the kernels' scratch in device memory (csrc/window_attn.cu
-    says why): the attention output, and for the whole block also the
-    attention residual x2 and the MLP's hidden layer. Freed when launch
-    returns, it is safe: the caching allocator reuses a block only for work
-    queued after the kernels on the same stream."""
+    launch allocates the kernels' one scratch buffer in device memory, the
+    attention output attn (csrc/window_attn.cu says why); the block's x2 and
+    hidden layer stay on chip. Freed when launch returns, it is safe: the
+    caching allocator reuses a block only for work queued after the kernels
+    on the same stream."""
     _check(name, x, heads, num_windows, operands)
     if x.device.type == "cpu":
         return reference(x, **operands, heads=heads, num_windows=num_windows)
@@ -195,13 +203,11 @@ def swin_block_fused(
                     w_fc1=w_fc1, b_fc1=b_fc1, w_fc2=w_fc2, b_fc2=b_fc2)
 
     def launch(lib, out, stream):
-        bw, n, c = x_windows.shape
-        attn, x2 = torch.empty_like(x_windows), torch.empty_like(x_windows)
-        hidden = torch.empty((bw * n, 4 * c), dtype=torch.float32, device=x_windows.device)
+        bw, _, c = x_windows.shape
+        attn = torch.empty_like(x_windows)
         return lib.swin_block_launch(
             *_ptrs(x_windows, w_qkv, b_qkv, w_proj, b_proj, bias, mask), mask.shape[0],
-            *_ptrs(gamma1, beta1, gamma2, beta2, w_fc1, b_fc1, w_fc2, b_fc2, attn, x2, hidden,
-                   out),
+            *_ptrs(gamma1, beta1, gamma2, beta2, w_fc1, b_fc1, w_fc2, b_fc2, attn, out),
             bw, c, heads, stream,
         )
 

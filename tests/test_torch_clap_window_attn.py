@@ -16,7 +16,9 @@ in the LayerNorm's form and in the Pallas kernel's Abramowitz-Stegun erf
 to 2-3e-6 at C = 96, and C = 768 sums eight times longer.
 
 The CUDA kernels run only on the card: their cases carry the `cuda` marker
-and skip without one.
+and skip without one. Their arithmetic, 3xTF32 products on the tensor cores
+(csrc/window_attn.cu), is emulated here in torch at every GEMM shape they
+run, against float64.
 """
 
 import numpy as np
@@ -76,6 +78,75 @@ ATTENTION_KEYS = ("x_windows", "w_qkv", "b_qkv", "w_proj", "b_proj", "bias", "ma
 def operands(kernel, arrays, device="cpu"):
     keys = ATTENTION_KEYS if kernel == "window_attention_fused" else tuple(arrays)
     return {k: torch.from_numpy(arrays[k]).to(device) for k in keys}
+
+
+# (stage, product) -> (K, N) of the kernels' GEMMs on one window (64 rows):
+# qkv C -> 3C, proj C -> C, fc1 C -> 4C, fc2 4C -> C at stages 1-3 (C 96,
+# 192, 384); qkv and proj at stage 4 (C 768, window_attention_fused).
+GEMMS = {
+    f"stage{i + 1}_{name}": shape
+    for i, c in enumerate((96, 192, 384))
+    for name, shape in (("qkv", (c, 3 * c)), ("proj", (c, c)), ("fc1", (c, 4 * c)),
+                        ("fc2", (4 * c, c)))
+}
+GEMMS.update(stage4_qkv=(768, 3 * 768), stage4_proj=(768, 768))
+SPLIT_RTOL = 2e-6
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """float32 rounded to TF32 (10 mantissa bits), to nearest with ties away
+    from zero, as cvt.rna.tf32.f32 does: add half a TF32 ulp to the magnitude
+    bits, then clear the 13 low bits (the kernels' split_tf32 forms hi so)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_product(a: torch.Tensor, b: torch.Tensor, split: bool) -> torch.Tensor:
+    """a @ b as the kernels form it, in k-steps of 8: each k-step's products
+    summed exactly (float64), rounded to float32 and added to a float32
+    accumulator. split: 3xTF32 (a_lo b_hi + a_hi b_lo + a_hi b_hi with
+    hi = tf32(x), lo = tf32(x - hi)); otherwise plain 1xTF32 (a_hi b_hi)."""
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    a_lo, b_lo = _tf32(a - a_hi), _tf32(b - b_hi)
+    k = a.shape[1]
+
+    def steps(x, y):  # [K/8, M, N]: the product of each 8-deep k-step
+        return torch.einsum("msk,skn->smn", x.double().reshape(-1, k // 8, 8),
+                            y.double().reshape(k // 8, 8, -1))
+
+    partial = steps(a_hi, b_hi)
+    if split:
+        partial = steps(a_lo, b_hi) + steps(a_hi, b_lo) + partial
+    acc = torch.zeros(partial.shape[1:], dtype=torch.float32)
+    for step in partial.float():
+        acc += step
+    return acc
+
+
+@pytest.mark.parametrize("gemm", sorted(GEMMS))
+def test_3xtf32_products_keep_float32_accuracy(gemm):
+    """At each GEMM shape of the kernels, inputs scaled as the smoke run's (x
+    after LayerNorm about 1, weights 0.05): the 3xTF32 product is within 2e-6
+    of a float64 matmul, relative to its largest entry, and 1xTF32 is not
+    (about 1e-3): the split is what keeps the port's float32 rule."""
+    k, n = GEMMS[gemm]
+    rng = np.random.default_rng(k + n)
+    a = torch.from_numpy(rng.standard_normal((64, k)).astype(np.float32))
+    b = torch.from_numpy((0.05 * rng.standard_normal((k, n))).astype(np.float32))
+    exact = a.double() @ b.double()
+    scale = float(exact.abs().max())
+    split_err = float((_tf32_product(a, b, True).double() - exact).abs().max()) / scale
+    plain_err = float((_tf32_product(a, b, False).double() - exact).abs().max()) / scale
+    assert split_err <= SPLIT_RTOL, f"3xTF32 {split_err:.3e}"
+    assert plain_err > 100 * SPLIT_RTOL, f"1xTF32 {plain_err:.3e}"
+
+
+def test_tf32_rounding_is_round_to_nearest_ties_away():
+    one_ulp = 2.0 ** -10
+    x = torch.tensor([1.0, 1.0 + one_ulp / 2, 1.0 + one_ulp / 2 - 2 ** -23, -(1.0 + one_ulp / 2),
+                      1.0 + 3 * one_ulp / 2], dtype=torch.float32)
+    expected = torch.tensor([1.0, 1.0 + one_ulp, 1.0, -(1.0 + one_ulp), 1.0 + 2 * one_ulp])
+    assert torch.equal(_tf32(x), expected)
 
 
 @pytest.fixture

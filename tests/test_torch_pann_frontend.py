@@ -12,7 +12,9 @@ where a different summation order moves a near-cancelling sum by whole
 decibels. Masked rows (t >= n_valid[b]) must be exactly 0.
 
 The CUDA kernel runs only on the card: its cases skip without one. What
-surrounds it (the operand layout it reads) is checked here in numpy.
+surrounds it is checked here in numpy: the sparse mel tables it reads, and a
+numpy model of its algorithm (csrc/rfft.cuh: the same window, twiddle table,
+radix order and split step) against the plain version.
 """
 
 import numpy as np
@@ -26,9 +28,6 @@ from frechet_audio_distance_exported_tpu_torch.ops import frontends as fe  # noq
 
 RATES = sorted(fe.PANN_CONFIGS)  # 8000, 16000, 32000, 48000
 POWER_RTOL = 1e-6
-# Row length of the kernel's DFT operand per n_fft (csrc/pann_logmel.cu:
-# bin lanes x bins per thread).
-NBIN_PAD = {256: 160, 512: 288, 1024: 576}
 
 
 def _geometry(sr):
@@ -164,35 +163,101 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         fused(w, nv, 22050, 10)
 
 
+def _radices(m):
+    """The kernel's stage order for an FFT of m points (csrc/rfft.cuh
+    stockham_from): radix 4 while it fits, then one radix 2 if log2 m is odd."""
+    out, ns = [], 1
+    while ns * 4 <= m:
+        out.append(4)
+        ns *= 4
+    if ns * 2 <= m:
+        out.append(2)
+    return out
+
+
+def _kernel_model(frames, window, twiddle, bands, taps):
+    """float32 numpy model of csrc/pann_logmel.cu over explicit frames [..., n_fft]:
+    the window product, z[n] = x[2n] + i x[2n+1], a Stockham FFT of n_fft/2
+    points (radix-4 stages, then radix 2), the split step to the n_fft/2 + 1
+    bins of the real spectrum, power, the sparse mel sum, and the dB."""
+    n_fft = frames.shape[-1]
+    m = n_fft // 2
+    tw = (twiddle[:, 0] + 1j * twiddle[:, 1]).astype(np.complex64)
+    x = frames.astype(np.float32) * window
+    z = (x[..., 0::2] + np.complex64(1j) * x[..., 1::2]).astype(np.complex64)
+    ns = 1
+    for radix in _radices(m):
+        j = np.arange(m // radix)
+        k = j % ns
+        v = [z[..., j + r * (m // radix)] for r in range(radix)]
+        if ns > 1:
+            v = [v[0]] + [v[r] * tw[2 * k * r * (m // (ns * radix))] for r in range(1, radix)]
+        if radix == 4:
+            a, b, c, d = v[0] + v[2], v[0] - v[2], v[1] + v[3], v[1] - v[3]
+            y = [a + c, b - np.complex64(1j) * d, a - c, b + np.complex64(1j) * d]
+        else:
+            y = [v[0] + v[1], v[0] - v[1]]
+        out = np.empty_like(z)
+        dst = (j // ns) * ns * radix + k
+        for r in range(radix):
+            out[..., dst + r * ns] = y[r]
+        z, ns = out, ns * radix
+    k = np.arange(m + 1)
+    a, c = z[..., k % m], np.conj(z[..., (m - k) % m])
+    even = np.float32(0.5) * (a + c)
+    odd = np.complex64(-0.5j) * (a - c)
+    spectrum = even + tw[k] * odd
+    power = (spectrum.real * spectrum.real + spectrum.imag * spectrum.imag).astype(np.float32)
+    mel = np.zeros(power.shape[:-1] + (len(bands),), np.float32)
+    for j, (start, count, offset) in enumerate(bands):
+        for i in range(count):
+            mel[..., j] += power[..., start + i] * taps[offset + i]
+    return 10.0 * np.log10(np.maximum(mel, np.float32(1e-10)))
+
+
 @pytest.mark.parametrize("sr", RATES)
-def test_kernel_operands_reproduce_the_plain_version(sr):
-    """The kernel reads the DFT as (cos, sin) pairs over n_fft rows with zero
-    bins past n_fft/2, stages samples past L as zeros, and masks rows at or
-    past n_valid. Evaluated with numpy over explicit frames, that layout must
-    give the plain chunk-sum result."""
+def test_sparse_mel_tables_rebuild_the_slaney_matrix(sr):
+    """The kernel's (start, count, offset) bands and packed taps give back
+    dsp.slaney_mel_matrix exactly, with the nonzero tap counts of each rate."""
+    n_fft, _ = _geometry(sr)
+    tables = cuda_pann_frontend._kernel_operands(sr, torch.device("cpu"))
+    assert all(t.is_contiguous() for t in tables)  # the kernel reads raw row-major pointers
+    window, twiddle, bands, taps = (t.numpy() for t in tables)
+    mel = cuda_pann_frontend._slaney_mel_np(sr)
+    assert window.dtype == twiddle.dtype == taps.dtype == np.float32 and bands.dtype == np.int32
+    assert window.shape == (n_fft,) and twiddle.shape == (n_fft, 2) and bands.shape == (64, 3)
+    rebuilt = np.zeros_like(mel)
+    for j, (start, count, offset) in enumerate(bands):
+        rebuilt[start : start + count, j] = taps[offset : offset + count]
+    assert np.array_equal(rebuilt, mel)
+    assert len(taps) == np.count_nonzero(mel) == {8000: 247, 16000: 495, 32000: 866, 48000: 577}[sr]
+    # The window is the bin-0 column of the plain version's windowed DFT matrix.
+    assert np.array_equal(window, dsp.windowed_dft_matrices(n_fft, n_fft)[0][:, 0])
+
+
+@pytest.mark.parametrize("sr", RATES)
+def test_fft_model_of_the_kernel_matches_the_plain_version(sr):
+    """The kernel's algorithm, modelled in float32 numpy over explicit frames
+    (samples past L read 0, rows at or past n_valid set to 0), gives the plain
+    chunk-sum log-mel within 1e-6 of each file's max power."""
     n_fft, hop = _geometry(sr)
-    dft, mel = cuda_pann_frontend._kernel_operands(sr, torch.device("cpu"), NBIN_PAD[n_fft])
-    assert dft.is_contiguous() and mel.is_contiguous()  # the kernel reads raw row-major pointers
-    dft, mel = dft.numpy().astype(np.float64), mel.numpy().astype(np.float64)
-    nbin = n_fft // 2 + 1
-    assert dft.shape == (n_fft, NBIN_PAD[n_fft], 2)
-    assert mel.shape == (nbin, 64)
-    assert not dft[:, nbin:].any()
+    tables = [t.numpy() for t in cuda_pann_frontend._kernel_operands(sr, torch.device("cpu"))]
     num_frames = 40
     w, n_valid = _case(sr, num_frames, seed=7)
-    padded = np.zeros((3, (num_frames - 1) * hop + n_fft))
+    padded = np.zeros((3, (num_frames - 1) * hop + n_fft), np.float32)
     padded[:, : w.shape[1]] = w
     idx = np.arange(num_frames)[:, None] * hop + np.arange(n_fft)[None, :]
-    frames = padded[:, idx]  # [B, T, n_fft]
-    re = frames @ dft[..., 0]
-    im = frames @ dft[..., 1]
-    power = (re * re + im * im)[..., :nbin]
-    emulated = 10.0 * np.log10(np.maximum(power @ mel, 1e-10))
-    emulated[np.arange(num_frames)[None, :] >= n_valid[:, None]] = 0.0
+    model = _kernel_model(padded[:, idx], *tables)
+    model[np.arange(num_frames)[None, :] >= n_valid[:, None]] = 0.0
     ref = cuda_pann_frontend.fused_pann_logmel_reference(
         torch.from_numpy(w), torch.from_numpy(n_valid), sr, num_frames
     ).numpy()
-    assert_power_close(emulated, ref, n_valid)
+    assert_power_close(model, ref, n_valid)
+    # And the FFT itself is numpy's real FFT of the windowed frames.
+    frames = padded[:1, idx[:4]].astype(np.float64) * tables[0]
+    power = np.abs(np.fft.rfft(frames, axis=-1)) ** 2
+    mel = 10.0 * np.log10(np.maximum(power @ cuda_pann_frontend._slaney_mel_np(sr), 1e-10))
+    assert_power_close(model[:1, :4], mel, [4])
 
 
 @pytest.mark.cuda
@@ -263,6 +328,12 @@ def test_build_compiles_each_source_then_links(monkeypatch, tmp_path):
     log = lib.with_suffix(".log").read_text()
     assert "entry function 'a'" in log and "entry function 'b'" in log and "-shared" in log
     assert sorted(p.suffix for p in lib.parent.iterdir()) == [".log", ".so"]  # no objects left
+    # A header under csrc/ is part of the name: an edit to it rebuilds.
+    (src / "c.cuh").write_text("// c\n")
+    with_header = _build.library_path()
+    assert with_header != lib
+    (src / "c.cuh").write_text("// c, edited\n")
+    assert _build.library_path() not in (lib, with_header)
     (src / "b.cu").write_text("// broken\n")
     with pytest.raises(RuntimeError, match="broken source"):
         _build.build()
