@@ -4,9 +4,12 @@
 
 Builds the port's four CUDA kernels from the sources in this checkout and
 checks each against its plain torch version at its main path's shapes, at
-the CUDA file_batch of 64: the two log-mel kernels, swin_block_fused at
-CLAP stages 1-3 (shifted and not) and window_attention_fused at stage 4,
-each timed beside its plain version and its bound (the PANN kernel also
+the CUDA file_batch of 64: the two log-mel kernels (each an in-block real
+FFT on csrc/rfft.cuh), swin_block_fused at CLAP stages 1-3 (shifted and
+not) and window_attention_fused at stage 4 (LN1, then the qkv and proj
+3xTF32 GEMMs over token tiles around the per-window attention:
+csrc/window_attn.cu), each
+timed beside its plain version and its bound (the log-mel kernels also
 beside a cuFFT composition of the same log-mel, as a yardstick). Then it
 drives the ported paths through the public API,
 FrechetAudioDistance(weights="random", device="cuda"):
@@ -16,8 +19,9 @@ FrechetAudioDistance(weights="random", device="cuda"):
 - CLAP: scores two 48 kHz corpora (with a 12 s clip, truncated, and a
   0.5 s one), then the 16 kHz part (resampled as it is loaded), and holds
   card embeddings against the CPU's on the pipeline's resample path.
-The CLAP pair and the pann-32k pair are also scored on the CPU plain path:
-the card's FAD must agree within 1e-3, absolute and relative.
+The CLAP pair, the pann-32k pair and a VGGish pair (8 clips a side) are
+also scored on the CPU plain path: the card's FAD must agree within 1e-3,
+absolute and relative.
 Each path runs with all four launch counts set to 0 just before it and read
 just after, so the counts show which kernels it went through: VGGish and
 PANN launch only their own log-mel kernel; CLAP launches the PANN log-mel
@@ -31,7 +35,7 @@ The last line of standard output is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}};
 the line before it lists the kernels with their launch counts, errors,
 times per 64-clip chunk, bounds (with the peak rate each used:
-`bound_flops_per_s`) and arithmetic (`arith`: "fp32 fma" or "3xtf32 mma").
+`bound_flops_per_s`) and arithmetic (`arith`: "fp32 fft" or "3xtf32 mma").
 Without CUDA, or outside a checkout of the repository, it exits non-zero and
 prints no result.
 """
@@ -187,17 +191,32 @@ def build_phase(torch, _build) -> None:
             print("ptxas:", line.strip())
 
 
+def cufft_vggish_logmel(torch, fe, wave, mel, num_frames: int):
+    """The VGGish log-mel composed from cuFFT and cuBLAS: torch.fft.rfft of the
+    windowed 400-sample frames zero-padded to 512, magnitude, mel product,
+    log. A yardstick for the FFT kernel's time only; the port never calls it."""
+    need = (num_frames - 1) * fe.VGGISH_HOP + fe.VGGISH_WINDOW
+    wave = torch.nn.functional.pad(wave, (0, max(0, need - wave.shape[1])))
+    frames = wave[:, :need].unfold(1, fe.VGGISH_WINDOW, fe.VGGISH_HOP)
+    window = torch.hann_window(fe.VGGISH_WINDOW, periodic=True, device=wave.device)
+    magnitude = torch.fft.rfft(frames * window, n=fe.VGGISH_FFT).abs()
+    return torch.log(torch.matmul(magnitude, mel) + fe.VGGISH_LOG_OFFSET)
+
+
 def vggish_kernel_phase(torch, np, cuda_frontend, fe, batch: int) -> dict:
     """VGGish kernel vs plain at B = the CUDA default file_batch, T = 960
     frames (10 s clips, in their length bucket of 163840 samples), and a
     ragged T whose wave ends inside the last frame. Returns the 960-frame
     numbers, with its bound: logmel_flops with a 512-point FFT of a 400-sample
     frame and the HTK mel's nonzero taps, and as bytes the samples the frames
-    read and the log-mel written."""
+    read and the log-mel written. Also times cufft_vggish_logmel on the same
+    inputs (printed, and as cufft_ms; not the library time, which needs one
+    call)."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED)
     shapes = [(960, 163840), (RAGGED_FRAMES, (RAGGED_FRAMES - 1) * fe.VGGISH_HOP + 300)]
     mel = cuda_frontend._htk_mel_np()
+    mel_dev = torch.from_numpy(mel).to(dev)
     max_err = 0.0
     rows = {}
     for num_frames, num_samples in shapes:
@@ -214,16 +233,21 @@ def vggish_kernel_phase(torch, np, cuda_frontend, fe, batch: int) -> dict:
             lambda: cuda_frontend.fused_vggish_logmel(wave, num_frames),
             lambda: cuda_frontend.fused_vggish_logmel_reference(wave, num_frames),
         )
+        composed = cufft_vggish_logmel(torch, fe, wave, mel_dev, num_frames)
+        check(bool(torch.isfinite(composed).all()), "cuFFT VGGish log-mel not finite")
+        cufft_ms = cuda_ms(torch, lambda: cufft_vggish_logmel(torch, fe, wave, mel_dev, num_frames))
         flops = logmel_flops(np, batch * num_frames, fe.VGGISH_WINDOW, fe.VGGISH_FFT, mel, True)
         read = min(num_samples, (num_frames - 1) * fe.VGGISH_HOP + fe.VGGISH_WINDOW)
         nbytes = 4 * (batch * read + out.numel())
         bound_ms, bound_by = bound(flops, nbytes)
         rows[num_frames] = {"ms": kern, "plain_ms": plain, "bound_ms": bound_ms,
-                            "bound_by": bound_by}
+                            "bound_by": bound_by, "cufft_ms": cufft_ms}
         print(f"vggish logmel B={batch} T={num_frames} S={num_samples}: max_abs_err {err:.3e} "
               f"kernel {kern:.4f} ms ({runs[1]:.4f}, {runs[2]:.4f}) "
               f"plain {plain:.4f} ms ({runs[0]:.4f}, {runs[3]:.4f}) bound {bound_ms:.4f} ms "
-              f"({bound_by}: {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.1f} MB)")
+              f"({bound_by}: {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.1f} MB); cuFFT + cuBLAS "
+              f"composition (torch.fft.rfft, magnitude, mel matmul, log; a yardstick only) "
+              f"{cufft_ms:.4f} ms")
     check(max_err <= LOGMEL_ATOL, f"VGGish kernel vs plain log-mel {max_err} > {LOGMEL_ATOL}")
     return {"max_abs_err": max_err, **rows[960]}
 
@@ -574,7 +598,11 @@ def main() -> int:
         check_only(counts, "fused_vggish_logmel", "vggish")
         vggish_launches = counts["fused_vggish_logmel"]
         check_pair_scores(scores, "vggish")
-        card_vs_cpu(np, fad, calculator("vggish", "cpu"), clips16k(), 16000, (20, 128), "vggish")
+        cpu_vggish = calculator("vggish", "cpu")
+        card_vs_cpu(np, fad, cpu_vggish, clips16k(), 16000, (20, 128), "vggish")
+        small = fad.score(bg_small, ev_small)
+        check(small != -1 and math.isfinite(small), f"vggish score(bg_small, ev_small) = {small}")
+        fad_delta(small, cpu_vggish, bg_small, ev_small, "vggish")
         del fad
 
         # 5. The PANN paths through the public API: pann-16k on the whole
@@ -638,8 +666,9 @@ def main() -> int:
             "plain_ms": vggish["plain_ms"],
             "bound_ms": vggish["bound_ms"],
             "bound_by": vggish["bound_by"],
+            "cufft_ms": vggish["cufft_ms"],
             "library_ms": None,
-            "arith": "fp32 fma",
+            "arith": "fp32 fft",
             "bound_flops_per_s": F32_FLOPS,
             "at": "64 files x 960 frames",
         },
@@ -654,7 +683,7 @@ def main() -> int:
             "err_of": "linear mel power, relative to each file's largest",
             **pann["rows"][16000],
             "library_ms": None,
-            "arith": "fp32 fma",
+            "arith": "fp32 fft",
             "bound_flops_per_s": F32_FLOPS,
             "at": "pann-16k, 64 files x 1032 frames",
             "by_rate": pann["rows"],

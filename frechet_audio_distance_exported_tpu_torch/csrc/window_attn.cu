@@ -17,7 +17,8 @@
 // cores as 3xTF32: each float32 operand is split into hi = tf32(a) (cvt.rna) and lo =
 // tf32(a - hi), and a*b is formed as a_lo*b_hi + a_hi*b_lo + a_hi*b_hi with
 // mma.sync.m16n8k8 TF32. Each k-step's three products go into a zeroed fragment that a
-// float32 add folds into the accumulator (mma_3xtf32 says why). That keeps float32 accuracy
+// float32 add folds into the accumulator (mma_3xtf32 says why; window_attention_fused's GEMMs
+// fold once a 32-deep slab). That keeps float32 accuracy
 // (about 2^-21 relative per product against 2^-24), so the port's exact-float32 rule holds;
 // plain 1xTF32 (2^-11) would not. Softmax, LayerNorm, GELU and the epilogues stay float32
 // SIMT.
@@ -45,16 +46,36 @@
 //    starts as x2 + b_fc2, and for each 96-column chunk of the hidden layer
 //    h = GELU(LN2(x2) @ W1[:, chunk] + b1) is kept in shared memory and acc += h @ W2[chunk, :].
 //    Only out is written: x2 and the hidden layer never reach device memory.
-// window_attention_fused is the same core launch, then proj_residual_kernel: one block per
-// (window, 96 output columns), out = x + attn @ W_proj + b_proj.
-// All products go through one building block, block_mma: a [64, NT] tile of op(A) @ W, its
-// warps in 2 rows of 32 by WARPS / 2 columns; W (and A, where it comes from device memory)
-// streamed from L2 in [KT, NT] slabs through a two-stage cp.async ring, so a slab's load
-// overlaps the previous slab's products. Row strides are padded (A: 4 mod 32 floats, W: 8 mod
-// 32) so that the fragment loads are free of bank conflicts.
+// The block's products go through one building block, block_mma: a [64, NT] tile of op(A) @
+// W, its warps in 2 rows of 32 by WARPS / 2 columns; W (and A, where it comes from device
+// memory) streamed from L2 in [KT, NT] slabs through a two-stage cp.async ring, so a slab's
+// load overlaps the previous slab's products. Row strides are padded (A: 4 mod 32 floats, W: 8
+// mod 32) so that the fragment loads are free of bank conflicts.
+//
+// window_attention_fused (CLAP stage 4: C = 768, one window an image, 64 windows at B = 64)
+// has kernels of its own, since 96 % of its work is two products whose weights are the same
+// for every window: qkv [M, C] @ [C, 3C] and proj [M, C] @ [C, C] over all M = BW * 64
+// tokens (20.1 GFLOP at B = 64, 0.122 ms at 165 TFLOP/s). Run per (window, 4 heads) as the
+// block's core does, each of 512 blocks would stream the window's x three times, normalise it
+// each time, and split both operands in every k-step of 32 x 24 warp tiles. Instead, in four
+// launches:
+// 1. ln_rows_kernel: LN1(x), the row statistics taken once per token, to device memory;
+// 2. gemm_3xtf32_kernel<128, 128>: qkv = LN1(x) @ w_qkv + b_qkv over [128, 128] token x
+//    column tiles (576 blocks at stage 4), to device memory;
+// 3. attention_from_qkv_kernel: per (window, 4 heads), q, k, v staged from qkv, then the core's
+//    attention (attend_group), attn to device memory;
+// 4. gemm_3xtf32_kernel<64, 128>: out = x + attn @ w_proj + b_proj (384 blocks: 2.9 waves of
+//    132 SMs where [128, 128] tiles would give 1.5).
+// The GEMM streams float32 A and W slabs (32 deep) through a four-stage cp.async ring and
+// gives each warp a [64, 32] or [32, 32] tile: a fragment is split into TF32 hi and lo in
+// registers once and feeds 4 (A) or 2-4 (B) m16n8 tiles, and a slab's products are folded
+// once. Operands split once ahead of the GEMM (hi and lo in device memory) were measured
+// slower: they double the bytes each block streams, which bound the GEMM (PERF.md).
+// The intermediates (LN1(x), qkv, attn) add about 0.13 GB of traffic at B = 64, 0.04 ms at
+// 3.35 TB/s, under the products' bound.
 //
 // The wrapper (ops/window_attn.py) checks shapes, types, devices, contiguity and 16-byte
-// alignment, and allocates the output and the attn scratch; a CUDA tensor reaches these
+// alignment, and allocates the output and the scratch; a CUDA tensor reaches these
 // kernels or the wrapper raises, and there is no fallback to the plain version.
 
 #include <cuda_runtime.h>
@@ -63,7 +84,7 @@
 
 namespace {
 
-constexpr int THREADS = 256;          // eight warps: the attention core and proj_residual_kernel
+constexpr int THREADS = 256;          // eight warps: every kernel but swin_mlp_kernel<C>
 // Warps of swin_mlp_kernel<C>: as few as keep its [64, C] fc2 accumulator and fc1 chunk in
 // registers without spilling (fewer warps, larger warp tiles, more reuse of each fragment):
 // at C = 384, 12 warps hold 64 accumulator floats a thread.
@@ -81,7 +102,6 @@ constexpr int H_LD = HIDDEN_CHUNK + 4;
 constexpr int CORE_KT = 16;           // slab depths of the products: q, k and v
 constexpr int WIDE_KT = 16;           // proj and fc2 in the MLP kernel ([KT, C] weight slabs)
 constexpr int FC1_KT = 32;
-constexpr int PROJ_KT = 32;           // proj_residual_kernel
 constexpr float LN_EPS = 1e-5f;
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -298,54 +318,26 @@ __device__ __forceinline__ void block_mma(const float* a, int lda, int k,
   }
 }
 
-constexpr int CORE_RING = ring_floats<GROUP, CORE_KT, true>();
-constexpr int CORE_SMEM_FLOATS = 2 * ROWS + 3 * ROWS * QKV_LD + CORE_RING;
-
-// attn[w*64 + r, h*24 + d] for the window w = blockIdx.x and heads 4*blockIdx.y .. +3.
-// x [bw*64, c]; wqkv [c, 3c]; bqkv [3c]; bias [heads, 64, 64]; mask [mask_count, 64, 64].
-__global__ void __launch_bounds__(THREADS)
-window_attention_core_kernel(const float* __restrict__ x, const float* __restrict__ wqkv,
-                             const float* __restrict__ bqkv, const float* __restrict__ bias,
-                             const float* __restrict__ mask, int mask_count,
-                             const float* __restrict__ g1, const float* __restrict__ b1,
-                             float* __restrict__ attn, int c, float scale) {
-  extern __shared__ __align__(16) float smem[];
-  float* mean_s = smem;
-  float* rstd_s = mean_s + ROWS;
-  float* qkv_s = rstd_s + ROWS;  // q, k, v of this block's heads: [3][ROWS][QKV_LD]
-  float* ring = qkv_s + 3 * ROWS * QKV_LD;
-
-  const long long win = blockIdx.x;
-  const float* xw = x + win * ROWS * c;
-  const int group = blockIdx.y;
-  row_stats<THREADS / 32>(xw, c, c, mean_s, rstd_s);
-  __syncthreads();
-
-  for (int part = 0; part < 3; ++part) {  // q, k, v
-    const int col0 = part * c + group * GROUP;
-    float acc[2][Tiling<GROUP, THREADS / 32>::N_TILES][4] = {};
-    block_mma<GROUP, CORE_KT, THREADS / 32, true, true>(xw, c, c, wqkv, 3 * c, col0, ring, mean_s,
-                                                        rstd_s, g1, b1, acc);
-    float* dst = qkv_s + part * ROWS * QKV_LD;
-    for_each_pair<GROUP, THREADS / 32>(acc, [&](int r, int col, float v0, float v1) {
-      dst[r * QKV_LD + col] = v0 + bqkv[col0 + col];
-      dst[r * QKV_LD + col + 1] = v1 + bqkv[col0 + col + 1];
-    });
-  }
-  __syncthreads();
-
-  // Attention: warp w takes head w/2 of the group and query rows 32*(w%2) .. +31, one m16
-  // tile at a time. Fragment rows are g and g + 8 of the tile, S columns (keys) 8j + 2t and
-  // 8j + 2t + 1.
+// Attention of one group of HEADS_PER_BLOCK heads over one window: q, k and v of the group's
+// GROUP columns staged in shared memory ([ROWS][QKV_LD] each, head hh at columns hh*24 ..
+// +23), the window's mask rows mask_w [64, 64]. Warp w takes head w/2 of the group and query
+// rows 32*(w%2) .. +31, one m16 tile at a time; fragment rows are g and g + 8 of the tile, S
+// columns (keys) 8j + 2t and 8j + 2t + 1. store(row, col, v0, v1) takes the outputs of the
+// neighbouring group columns col, col + 1 of a row. Reads shared memory only after the
+// caller's __syncthreads.
+template <class Store>
+__device__ __forceinline__ void attend_group(const float* q_s, const float* k_s, const float* v_s,
+                                             const float* __restrict__ bias,
+                                             const float* __restrict__ mask_w, int group,
+                                             float scale, Store&& store) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
   const int hh = warp / 2;
   const int h = group * HEADS_PER_BLOCK + hh;
-  const float* q_s = qkv_s + hh * HD;
-  const float* k_s = qkv_s + ROWS * QKV_LD + hh * HD;
-  const float* v_s = qkv_s + 2 * ROWS * QKV_LD + hh * HD;
+  q_s += hh * HD;
+  k_s += hh * HD;
+  v_s += hh * HD;
   const float* bias_h = bias + (long long)h * ROWS * ROWS;
-  const float* mask_w = mask + (long long)(win % mask_count) * ROWS * ROWS;
 #pragma unroll 1
   for (int mt = 0; mt < 2; ++mt) {
     const int r0 = 32 * (warp % 2) + 16 * mt;
@@ -424,12 +416,54 @@ window_attention_core_kernel(const float* __restrict__ x, const float* __restric
     for (int n = 0; n < HD / 8; ++n) {
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
-        const long long row = win * ROWS + r0 + g + 8 * half;
-        *reinterpret_cast<float2*>(attn + row * c + h * HD + 8 * n + 2 * t) =
-            make_float2(o[n][2 * half], o[n][2 * half + 1]);
+        store(r0 + g + 8 * half, hh * HD + 8 * n + 2 * t, o[n][2 * half], o[n][2 * half + 1]);
       }
     }
   }
+}
+
+constexpr int CORE_RING = ring_floats<GROUP, CORE_KT, true>();
+constexpr int CORE_SMEM_FLOATS = 2 * ROWS + 3 * ROWS * QKV_LD + CORE_RING;
+
+// attn[w*64 + r, h*24 + d] for the window w = blockIdx.x and heads 4*blockIdx.y .. +3.
+// x [bw*64, c]; wqkv [c, 3c]; bqkv [3c]; bias [heads, 64, 64]; mask [mask_count, 64, 64].
+__global__ void __launch_bounds__(THREADS)
+window_attention_core_kernel(const float* __restrict__ x, const float* __restrict__ wqkv,
+                             const float* __restrict__ bqkv, const float* __restrict__ bias,
+                             const float* __restrict__ mask, int mask_count,
+                             const float* __restrict__ g1, const float* __restrict__ b1,
+                             float* __restrict__ attn, int c, float scale) {
+  extern __shared__ __align__(16) float smem[];
+  float* mean_s = smem;
+  float* rstd_s = mean_s + ROWS;
+  float* qkv_s = rstd_s + ROWS;  // q, k, v of this block's heads: [3][ROWS][QKV_LD]
+  float* ring = qkv_s + 3 * ROWS * QKV_LD;
+
+  const long long win = blockIdx.x;
+  const float* xw = x + win * ROWS * c;
+  const int group = blockIdx.y;
+  row_stats<THREADS / 32>(xw, c, c, mean_s, rstd_s);
+  __syncthreads();
+
+  for (int part = 0; part < 3; ++part) {  // q, k, v
+    const int col0 = part * c + group * GROUP;
+    float acc[2][Tiling<GROUP, THREADS / 32>::N_TILES][4] = {};
+    block_mma<GROUP, CORE_KT, THREADS / 32, true, true>(xw, c, c, wqkv, 3 * c, col0, ring, mean_s,
+                                                        rstd_s, g1, b1, acc);
+    float* dst = qkv_s + part * ROWS * QKV_LD;
+    for_each_pair<GROUP, THREADS / 32>(acc, [&](int r, int col, float v0, float v1) {
+      dst[r * QKV_LD + col] = v0 + bqkv[col0 + col];
+      dst[r * QKV_LD + col + 1] = v1 + bqkv[col0 + col + 1];
+    });
+  }
+  __syncthreads();
+
+  attend_group(qkv_s, qkv_s + ROWS * QKV_LD, qkv_s + 2 * ROWS * QKV_LD, bias,
+               mask + (win % mask_count) * ROWS * ROWS, group, scale,
+               [&](int r, int col, float v0, float v1) {
+                 *reinterpret_cast<float2*>(attn + (win * ROWS + r) * c + group * GROUP + col) =
+                     make_float2(v0, v1);
+               });
 }
 
 template <int C>
@@ -505,27 +539,215 @@ swin_mlp_kernel(const float* __restrict__ attn, const float* __restrict__ x,
   });
 }
 
-constexpr int PROJ_SMEM_FLOATS = ring_floats<GROUP, PROJ_KT, true>();
+// ---- window_attention_fused: the attention half as token-tile GEMMs over all windows ----
+//
+// The products of the attention half, qkv [M, C] @ [C, 3C] and proj [M, C] @ [C, C] over all
+// M = BW * 64 tokens, take 96 % of its work at stage 4, and their weights are the same for
+// every window. So they run as two GEMMs over token tiles, and only the attention itself runs
+// per (window, 4 heads).
 
-// out = x + (attn @ wproj + bproj) for the window blockIdx.x and output columns
-// 96*blockIdx.y .. +95. attn, x, out [bw*64, c]; wproj [c, c].
+// LN1 of each row of x [m, c] into a [m, c], one warp per row (the LayerNorm of row_stats and
+// block_mma, in the same order): the statistics are taken once per token.
 __global__ void __launch_bounds__(THREADS)
-proj_residual_kernel(const float* __restrict__ attn, const float* __restrict__ x,
-                     const float* __restrict__ wproj, const float* __restrict__ bproj,
-                     float* __restrict__ out, int c) {
+ln_rows_kernel(const float* __restrict__ x, const float* __restrict__ g1,
+               const float* __restrict__ b1, float* __restrict__ a, int m, int c) {
+  const int row = blockIdx.x * (THREADS / 32) + threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (row >= m) return;
+  const float* p = x + (long long)row * c;
+  float s = 0.0f;
+  for (int i = lane; i < c; i += 32) s += p[i];
+  const float mean = warp_sum(s) / c;
+  float v = 0.0f;
+  for (int i = lane; i < c; i += 32) {
+    const float d = p[i] - mean;
+    v = fmaf(d, d, v);
+  }
+  const float rstd = 1.0f / sqrtf(warp_sum(v) / c + LN_EPS);
+  for (int i = lane; i < c; i += 32) {
+    a[(long long)row * c + i] = (p[i] - mean) * rstd * g1[i] + b1[i];
+  }
+}
+
+// split_tf32 with lo rounded by the same two integer operations as hi (the bits of cvt.rna for
+// every finite value): the GEMM splits every fragment it loads, and the conversion instruction
+// issues at a quarter of the integer rate.
+__device__ __forceinline__ void split_tf32_int(float a, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(a) + 0x1000u) & 0xffffe000u;
+  lo = (__float_as_uint(a - __uint_as_float(hi)) + 0x1000u) & 0xffffe000u;
+}
+
+// cp.async of 16 bytes that writes zeros where !valid (src-size 0: nothing is read).
+__device__ __forceinline__ void cp_async16_zfill(float* smem, const float* gmem, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(valid ? 16 : 0));
+}
+
+// Four 8 x 4 tiles of 32-bit values from shared memory: lane l gives the address of row l % 8
+// of tile l / 8, and gets element (l / 4, l % 4) of each tile (ldmatrix on b16 pairs).
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const float* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
+}
+
+constexpr int GEMM_KT = 32;              // depth of a staged slab
+constexpr int GEMM_A_LD = GEMM_KT + 4;   // padded A rows: conflict-free ldmatrix
+constexpr int GEMM_STAGES = 4;           // cp.async ring
+
+// A [BM, BN] output tile over 8 warps in 2 rows by 4 columns, each warp MT m16 by NT n8 tiles.
+template <int BM, int BN>
+struct GemmTile {
+  static constexpr int WM = BM / 2, WN = BN / 4;
+  static constexpr int MT = WM / 16, NT = WN / 8;
+  static_assert(WM % 16 == 0 && WN % 8 == 0, "whole m16 and n8 tiles");
+  static constexpr int B_LD = BN + 8;  // 8 mod 32 floats: conflict-free B fragments
+  static constexpr int STAGE_FLOATS = BM * GEMM_A_LD + GEMM_KT * B_LD;
+  static constexpr int SMEM_BYTES = GEMM_STAGES * STAGE_FLOATS * (int)sizeof(float);
+};
+
+// out[r, j] = (a @ w)[r, j] + bias[j] (+ residual[r, j]) for r < m, j < n, in 3xTF32: a [m, k]
+// and w [k, n] row-major float32, as the caller has them. Block (blockIdx.x, blockIdx.y) takes
+// output columns BN * blockIdx.x and rows BM * blockIdx.y; slabs of KT = 32 stream through a
+// four-stage cp.async ring (rows past m and columns past n read as zero and are not written).
+// Each warp loads an A fragment with one ldmatrix, B fragments with 32-bit loads, and splits
+// them in registers (split_tf32_int); each split A fragment feeds NT and each B fragment MT
+// m16n8k8 tiles, three products each. The products of a slab (4 k-steps, 12 mma.sync a tile)
+// go into a fresh fragment that a float32 add folds into the accumulator once a slab: the
+// tensor core's truncating accumulation then stays relative to a 32-deep partial sum, and
+// the fold and its registers cost a quarter of a fold per k-step (mma_3xtf32 says why).
+// k % 32 == 0, n % 8 == 0, pointers 16-byte aligned.
+template <int BM, int BN>
+__global__ void __launch_bounds__(THREADS, 1)
+gemm_3xtf32_kernel(const float* __restrict__ a, const float* __restrict__ w,
+                   const float* __restrict__ bias, const float* __restrict__ residual,
+                   float* __restrict__ out, int m, int n, int k) {
+  using T = GemmTile<BM, BN>;
   extern __shared__ __align__(16) float smem[];
-  const long long row0 = (long long)blockIdx.x * ROWS;
-  const int col0 = blockIdx.y * GROUP;
-  float acc[2][Tiling<GROUP, THREADS / 32>::N_TILES][4] = {};
-  block_mma<GROUP, PROJ_KT, THREADS / 32, true, false>(attn + row0 * c, c, c, wproj, c, col0,
-                                                       smem, nullptr, nullptr, nullptr, nullptr,
-                                                       acc);
-  for_each_pair<GROUP, THREADS / 32>(acc, [&](int r, int col, float v0, float v1) {
-    const long long o = (row0 + r) * c + col0 + col;
-    const float2 xr = *reinterpret_cast<const float2*>(x + o);
-    *reinterpret_cast<float2*>(out + o) =
-        make_float2(xr.x + (v0 + bproj[col0 + col]), xr.y + (v1 + bproj[col0 + col + 1]));
-  });
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wm = warp / 4, wn = warp % 4;
+  const int g = lane / 4, t = lane % 4;
+
+  auto load = [&](int slab, int stage) {
+    float* as = smem + stage * T::STAGE_FLOATS;
+    float* bs = as + BM * GEMM_A_LD;
+    const int k0 = slab * GEMM_KT;
+    for (int i = threadIdx.x; i < BM * (GEMM_KT / 4); i += THREADS) {
+      const int r = i / (GEMM_KT / 4), c = 4 * (i % (GEMM_KT / 4));
+      const bool valid = m0 + r < m;
+      cp_async16_zfill(as + r * GEMM_A_LD + c, a + (long long)(valid ? m0 + r : 0) * k + k0 + c,
+                       valid);
+    }
+    for (int i = threadIdx.x; i < GEMM_KT * (BN / 4); i += THREADS) {
+      const int r = i / (BN / 4), c = 4 * (i % (BN / 4));
+      const bool valid = n0 + c < n;
+      cp_async16_zfill(bs + r * T::B_LD + c, w + (long long)(k0 + r) * n + (valid ? n0 + c : 0),
+                       valid);
+    }
+  };
+
+  float acc[T::MT][T::NT][4] = {};
+  // ldmatrix rows of an m16 tile's A: tiles (rows 0-7 | 8-15) x (k 0-3 | 4-7) give a0..a3.
+  const int a_row = wm * T::WM + lane % 8 + 8 * ((lane / 8) % 2), a_col = 4 * (lane / 16);
+  const int b_col = wn * T::WN + g;
+  const int slabs = k / GEMM_KT;
+#pragma unroll
+  for (int s = 0; s < GEMM_STAGES - 1; ++s) {
+    if (s < slabs) load(s, s);
+    cp_async_commit();
+  }
+  for (int s = 0; s < slabs; ++s) {
+    cp_async_wait<GEMM_STAGES - 2>();
+    __syncthreads();  // slab s is in; every warp is done with the stage the next load takes
+    if (s + GEMM_STAGES - 1 < slabs) load(s + GEMM_STAGES - 1, (s + GEMM_STAGES - 1) % GEMM_STAGES);
+    cp_async_commit();
+    const float* as = smem + (s % GEMM_STAGES) * T::STAGE_FLOATS;
+    const float* bs = as + BM * GEMM_A_LD;
+    float part[T::MT][T::NT][4] = {};  // this slab's products
+#pragma unroll
+    for (int kk = 0; kk < GEMM_KT; kk += 8) {
+      uint32_t bh[T::NT][2], bl[T::NT][2];
+#pragma unroll
+      for (int nt = 0; nt < T::NT; ++nt) {
+        const float* p = bs + (kk + t) * T::B_LD + b_col + 8 * nt;
+        split_tf32_int(p[0], bh[nt][0], bl[nt][0]);               // (k = t, n = g)
+        split_tf32_int(p[4 * T::B_LD], bh[nt][1], bl[nt][1]);     // (k = t + 4, n = g)
+      }
+#pragma unroll
+      for (int mt = 0; mt < T::MT; ++mt) {
+        uint32_t f[4], ah[4], al[4];
+        ldsm_x4(f, as + (a_row + 16 * mt) * GEMM_A_LD + kk + a_col);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) split_tf32_int(__uint_as_float(f[e]), ah[e], al[e]);
+#pragma unroll
+        for (int nt = 0; nt < T::NT; ++nt) {
+          mma_tf32(part[mt][nt], al, bh[nt]);
+          mma_tf32(part[mt][nt], ah, bl[nt]);
+          mma_tf32(part[mt][nt], ah, bh[nt]);
+        }
+      }
+    }
+#pragma unroll
+    for (int mt = 0; mt < T::MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < T::NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][nt][e] += part[mt][nt][e];
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int mt = 0; mt < T::MT; ++mt) {
+#pragma unroll
+    for (int nt = 0; nt < T::NT; ++nt) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = m0 + wm * T::WM + 16 * mt + g + 8 * h;
+        const int col = n0 + wn * T::WN + 8 * nt + 2 * t;
+        if (row < m && col < n) {
+          const long long o = (long long)row * n + col;
+          float v0 = acc[mt][nt][2 * h] + bias[col], v1 = acc[mt][nt][2 * h + 1] + bias[col + 1];
+          if (residual != nullptr) {
+            const float2 r = *reinterpret_cast<const float2*>(residual + o);
+            v0 = r.x + v0;
+            v1 = r.y + v1;
+          }
+          *reinterpret_cast<float2*>(out + o) = make_float2(v0, v1);
+        }
+      }
+    }
+  }
+}
+
+constexpr int ATTN_SMEM_FLOATS = 3 * ROWS * QKV_LD;
+
+// The attention of window blockIdx.x, heads 4*blockIdx.y .. +3, from qkv [bw*64, 3c] (q | k |
+// v, b_qkv added), into attn [bw*64, c].
+__global__ void __launch_bounds__(THREADS)
+attention_from_qkv_kernel(const float* __restrict__ qkv, const float* __restrict__ bias,
+                          const float* __restrict__ mask, int mask_count,
+                          float* __restrict__ attn, int c, float scale) {
+  extern __shared__ __align__(16) float smem[];  // q, k, v of this block's heads: [3][ROWS][QKV_LD]
+  const long long win = blockIdx.x;
+  const int group = blockIdx.y;
+  const float* src = qkv + win * ROWS * 3 * c + group * GROUP;
+  for (int i = threadIdx.x; i < 3 * ROWS * (GROUP / 4); i += THREADS) {
+    const int part = i / (ROWS * (GROUP / 4)), r = (i / (GROUP / 4)) % ROWS;
+    const int col = 4 * (i % (GROUP / 4));
+    cp_async16(smem + (part * ROWS + r) * QKV_LD + col,
+               src + (long long)r * 3 * c + part * c + col);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  float* dst = attn + win * ROWS * c + group * GROUP;
+  attend_group(smem, smem + ROWS * QKV_LD, smem + 2 * ROWS * QKV_LD, bias,
+               mask + (win % mask_count) * ROWS * ROWS, group, scale,
+               [=](int r, int col, float v0, float v1) {
+                 *reinterpret_cast<float2*>(dst + r * c + col) = make_float2(v0, v1);
+               });
 }
 
 template <class Kernel>
@@ -569,22 +791,48 @@ int launch_mlp(const float* attn, const float* x, const float* wproj, const floa
 
 extern "C" {
 
-// x + proj(attn(LN1(x))) into out [bw, 64, c]; attn [bw*64, c] is scratch. Launches on
-// `stream` and returns the first cudaError_t (0 = ok; cudaErrorInvalidValue for shapes the
-// kernels do not take). Does not synchronise and allocates nothing.
+// x + proj(attn(LN1(x))) into out [bw, 64, c], in four launches: LN1, the qkv GEMM with
+// b_qkv, the attention, the proj GEMM with b_proj and the residual. Scratch: a [bw*64, c]
+// (LN1(x), then attn) and qkv [bw*64, 3c]. Launches on `stream` and returns the first
+// cudaError_t (0 = ok; cudaErrorInvalidValue for shapes the kernels do not take). Does not
+// synchronise and allocates nothing.
 int window_attention_launch(const float* x, const float* wqkv, const float* bqkv,
                             const float* wproj, const float* bproj, const float* bias,
                             const float* mask, int mask_count, const float* g1, const float* b1,
-                            float* attn, float* out, int bw, int c, int heads, void* stream) {
+                            float* a, float* qkv, float* out, int bw, int c, int heads,
+                            void* stream) {
   int err = check_args(bw, c, heads, mask_count);
   if (err) return err;
+  if (bw > 65535) return (int)cudaErrorInvalidValue;  // the proj GEMM's row tiles on gridDim.y
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  err = launch_core(x, wqkv, bqkv, bias, mask, mask_count, g1, b1, attn, bw, c, heads, s);
+  const int m = bw * ROWS;
+
+  ln_rows_kernel<<<(m + THREADS / 32 - 1) / (THREADS / 32), THREADS, 0, s>>>(x, g1, b1, a, m, c);
+  err = (int)cudaGetLastError();
   if (err) return err;
-  err = set_smem(proj_residual_kernel, PROJ_SMEM_FLOATS);
+
+  using QkvTile = GemmTile<128, 128>;  // 576 blocks at stage 4, B = 64
+  err = set_smem(gemm_3xtf32_kernel<128, 128>, QkvTile::SMEM_BYTES / (int)sizeof(float));
   if (err) return err;
-  proj_residual_kernel<<<dim3(bw, c / GROUP), THREADS, PROJ_SMEM_FLOATS * sizeof(float), s>>>(
-      attn, x, wproj, bproj, out, c);
+  gemm_3xtf32_kernel<128, 128><<<dim3((3 * c + 127) / 128, (m + 127) / 128), THREADS,
+                                 QkvTile::SMEM_BYTES, s>>>(a, wqkv, bqkv, nullptr, qkv, m, 3 * c,
+                                                           c);
+  err = (int)cudaGetLastError();
+  if (err) return err;
+
+  err = set_smem(attention_from_qkv_kernel, ATTN_SMEM_FLOATS);
+  if (err) return err;
+  attention_from_qkv_kernel<<<dim3(bw, heads / HEADS_PER_BLOCK), THREADS,
+                              ATTN_SMEM_FLOATS * sizeof(float), s>>>(
+      qkv, bias, mask, mask_count, a, c, 1.0f / sqrtf((float)HD));
+  err = (int)cudaGetLastError();
+  if (err) return err;
+
+  using ProjTile = GemmTile<64, 128>;  // 384 blocks at stage 4: 2.9 waves of 132
+  err = set_smem(gemm_3xtf32_kernel<64, 128>, ProjTile::SMEM_BYTES / (int)sizeof(float));
+  if (err) return err;
+  gemm_3xtf32_kernel<64, 128><<<dim3((c + 127) / 128, (m + 63) / 64), THREADS,
+                                ProjTile::SMEM_BYTES, s>>>(a, wproj, bproj, x, out, m, c, c);
   return (int)cudaGetLastError();
 }
 

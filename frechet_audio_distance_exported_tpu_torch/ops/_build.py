@@ -102,12 +102,12 @@ def build() -> Path:
 def load_library() -> ctypes.CDLL:
     """Build if needed, load once per process, and declare the C entry points."""
     lib = ctypes.CDLL(str(build()))
-    lib.vggish_logmel_nbin_pad.argtypes = []
-    lib.vggish_logmel_nbin_pad.restype = ctypes.c_int
     lib.vggish_logmel_launch.argtypes = [
         ctypes.c_void_p,  # wave
-        ctypes.c_void_p,  # dft (cos, sin) pairs
-        ctypes.c_void_p,  # mel
+        ctypes.c_void_p,  # window
+        ctypes.c_void_p,  # twiddle (cos, -sin) pairs
+        ctypes.c_void_p,  # mel bands (start, count, offset), int32
+        ctypes.c_void_p,  # mel taps
         ctypes.c_void_p,  # out
         ctypes.c_int,  # batch
         ctypes.c_longlong,  # num_samples
@@ -145,7 +145,8 @@ def load_library() -> ctypes.CDLL:
     ]
     lib.window_attention_launch.argtypes = [
         *attention_args,
-        ctypes.c_void_p,  # attn scratch
+        ctypes.c_void_p,  # a scratch (LN1(x), then attn)
+        ctypes.c_void_p,  # qkv scratch
         ctypes.c_void_p,  # out
         ctypes.c_int,  # windows (BW)
         ctypes.c_int,  # C

@@ -44,18 +44,13 @@ def _mel_tensor(device: torch.device) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=8)
-def _kernel_operands(device: torch.device, nbin_pad: int):
-    """(dft [400, nbin_pad, 2] (cos, sin) pairs, mel [257, 64]) on ``device``.
-
-    Built once per device from the same chunked matrix as the plain version,
-    without its zero rows 400-479, with cos and sin of a bin side by side
-    and zero bins past 256."""
-    cat_c, nbin = dsp._chunked_dft_cat(VGGISH_WINDOW, VGGISH_FFT, VGGISH_HOP)
-    cat2d = cat_c.reshape(-1, 2 * nbin)[:VGGISH_WINDOW]
-    pairs = np.zeros((VGGISH_WINDOW, nbin_pad, 2), np.float32)
-    pairs[:, :nbin, 0] = cat2d[:, :nbin]
-    pairs[:, :nbin, 1] = cat2d[:, nbin:]
-    return torch.from_numpy(pairs).to(device), _mel_tensor(device)
+def _kernel_operands(device: torch.device):
+    """The kernel's tables (dsp.fft_logmel_tables: window [400], twiddle
+    [512, 2], bands [64, 3] int32 and the 461 taps of the HTK mel) as
+    contiguous tensors on ``device``, copied once: the kernel reads them
+    through raw row-major pointers."""
+    tables = dsp.fft_logmel_tables(VGGISH_WINDOW, VGGISH_FFT, _htk_mel_np())
+    return tuple(torch.from_numpy(t).to(device) for t in tables)
 
 
 def fused_vggish_logmel_reference(wave: torch.Tensor, num_frames: int) -> torch.Tensor:
@@ -89,17 +84,14 @@ def fused_vggish_logmel(wave: torch.Tensor, num_frames: int) -> torch.Tensor:
         raise ValueError(f"batch {batch} exceeds the kernel's grid limit {_MAX_GRID_Y}")
 
     lib = _build.load_library()
-    dft, mel = _kernel_operands(wave.device, lib.vggish_logmel_nbin_pad())
+    tables = _kernel_operands(wave.device)
     out = torch.empty((batch, num_frames, VGGISH_MEL_BINS), dtype=torch.float32, device=wave.device)
     if batch == 0 or num_frames == 0:
         return out
     with torch.cuda.device(wave.device):
         stream = torch.cuda.current_stream(wave.device).cuda_stream
         err = lib.vggish_logmel_launch(
-            ctypes.c_void_p(wave.data_ptr()),
-            ctypes.c_void_p(dft.data_ptr()),
-            ctypes.c_void_p(mel.data_ptr()),
-            ctypes.c_void_p(out.data_ptr()),
+            *(ctypes.c_void_p(t.data_ptr()) for t in (wave, *tables, out)),
             batch,
             num_samples,
             num_frames,

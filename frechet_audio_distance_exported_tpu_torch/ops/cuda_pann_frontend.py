@@ -49,35 +49,13 @@ def _mel_tensor(target_sample_rate: int, device: torch.device) -> torch.Tensor:
 
 @functools.lru_cache(maxsize=16)
 def _kernel_operands(target_sample_rate: int, device: torch.device):
-    """The kernel's tables as contiguous tensors on ``device``, copied once
-    (the kernel reads them through raw row-major pointers): (window [n_fft]
-    f32, twiddle [n_fft, 2] f32, bands [64, 3] int32, taps [nnz] f32).
-
-    - window: the periodic Hann window in the float32 values of the plain
-      version's windowed DFT matrix (its bin-0 column).
-    - twiddle: exp(-2 pi i m / n_fft) for m < n_fft as (cos, -sin) pairs,
-      computed in float64 and rounded once to float32. The FFT of n_fft/2
-      points reads every other entry; the split step reads the first
-      n_fft/2 + 1.
-    - bands, taps: the Slaney mel as a sparse matrix. Band j's nonzero taps
-      are the contiguous bins start .. start + count - 1 (a triangle); row j
-      of bands is (start, count, offset), and taps[offset : offset + count]
-      are its weights, the float32 values of slaney_mel_matrix. A band
-      without taps has count 0."""
+    """The kernel's tables (dsp.fft_logmel_tables: window [n_fft], twiddle
+    [n_fft, 2], bands [64, 3] int32 and taps of the Slaney mel) as
+    contiguous tensors on ``device``, copied once: the kernel reads them
+    through raw row-major pointers."""
     n_fft, _, _ = _geometry(target_sample_rate)
-    window = dsp.periodic_hann(n_fft).astype(np.float32)
-    angle = 2.0 * np.pi * np.arange(n_fft) / n_fft
-    twiddle = np.stack([np.cos(angle), -np.sin(angle)], axis=1).astype(np.float32)
-    mel = _slaney_mel_np(target_sample_rate)
-    bands, taps = [], []
-    for j in range(mel.shape[1]):
-        nonzero = np.flatnonzero(mel[:, j])
-        start = int(nonzero[0]) if nonzero.size else 0
-        count = int(nonzero[-1]) + 1 - start if nonzero.size else 0
-        bands.append((start, count, sum(len(t) for t in taps)))
-        taps.append(mel[start : start + count, j])
-    tables = (window, twiddle, np.asarray(bands, np.int32), np.concatenate(taps))
-    return tuple(torch.from_numpy(np.ascontiguousarray(t)).to(device) for t in tables)
+    tables = dsp.fft_logmel_tables(n_fft, n_fft, _slaney_mel_np(target_sample_rate))
+    return tuple(torch.from_numpy(t).to(device) for t in tables)
 
 
 def fused_pann_logmel_reference(

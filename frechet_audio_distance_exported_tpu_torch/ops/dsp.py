@@ -2,7 +2,8 @@
 
 The numpy builders are copies of frechet_audio_distance_exported_tpu/ops/dsp.py
 (L33-160, L178-207), kept here so the port never imports the JAX package.
-They are float64 NumPy, cached per configuration.
+They are float64 NumPy, cached per configuration. fft_logmel_tables,
+the port's own, builds the tables of the FFT log-mel kernels from them.
 
 stft_spectrum_strided / stft_power_strided / stft_magnitude_strided are the
 torch counterparts of the JAX chunk-sum STFT (ops/dsp.py L210-276, the
@@ -40,6 +41,37 @@ def windowed_dft_matrices(window_length: int, fft_length: int):
     cos_m = (w[:, None] * np.cos(ang)).astype(np.float32)
     sin_m = (-w[:, None] * np.sin(ang)).astype(np.float32)
     return cos_m, sin_m
+
+
+def fft_logmel_tables(window_length: int, n_fft: int, mel: np.ndarray):
+    """The tables of the FFT log-mel kernels (csrc/rfft.cuh and its two
+    users), as contiguous numpy arrays: (window [window_length] f32, twiddle
+    [n_fft, 2] f32, bands [mel_bins, 3] int32, taps [nnz] f32).
+
+    - window: the periodic Hann window of window_length samples in float32,
+      the values of the plain version's windowed DFT matrix (its bin-0
+      column); the kernels zero-pad a shorter window to n_fft.
+    - twiddle: exp(-2 pi i m / n_fft) for m < n_fft as (cos, -sin) pairs,
+      computed in float64 and rounded once to float32. The FFT of n_fft/2
+      points reads every other entry; the split step reads the first
+      n_fft/2 + 1.
+    - bands, taps: mel [n_fft/2 + 1, mel_bins] as a sparse matrix. Band j's
+      nonzero taps are the contiguous bins start .. start + count - 1 (a
+      triangle); row j of bands is (start, count, offset), and
+      taps[offset : offset + count] are its weights, the float32 values of
+      mel. A band without taps has count 0."""
+    window = periodic_hann(window_length).astype(np.float32)
+    angle = 2.0 * np.pi * np.arange(n_fft) / n_fft
+    twiddle = np.stack([np.cos(angle), -np.sin(angle)], axis=1).astype(np.float32)
+    bands, taps = [], []
+    for j in range(mel.shape[1]):
+        nonzero = np.flatnonzero(mel[:, j])
+        start = int(nonzero[0]) if nonzero.size else 0
+        count = int(nonzero[-1]) + 1 - start if nonzero.size else 0
+        bands.append((start, count, sum(len(t) for t in taps)))
+        taps.append(mel[start : start + count, j])
+    tables = (window, twiddle, np.asarray(bands, np.int32), np.concatenate(taps))
+    return tuple(np.ascontiguousarray(t) for t in tables)
 
 
 _MEL_BREAK_FREQUENCY_HERTZ = 700.0

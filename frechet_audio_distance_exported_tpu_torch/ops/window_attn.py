@@ -44,6 +44,8 @@ KERNEL_HEAD_GROUP = 4
 # (CLAP stages 1-3); stage 4 runs window_attention_fused.
 KERNEL_BLOCK_WIDTHS = (96, 192, 384)
 KERNEL_ALIGN = 16  # bytes: the kernels stream their operands with 16-byte cp.async
+# window_attention_fused's proj GEMM puts its 64-token row tiles on gridDim.y.
+KERNEL_MAX_WINDOWS = 65535
 
 
 def _layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:
@@ -92,6 +94,32 @@ def swin_block_fused_reference(
     return x2 + (torch.matmul(hidden, w_fc2) + b_fc2)
 
 
+def attention_scratch(bw: int, c: int, device) -> dict:
+    """The device scratch of window_attention_fused's kernels, allocated per
+    call: a [M, C] (LN1(x), then attn) and qkv [M, 3C], M = BW * 64 tokens."""
+    m = bw * KERNEL_TOKENS
+    f32 = dict(dtype=torch.float32, device=device)
+    return {"a": torch.empty((m, c), **f32), "qkv": torch.empty((m, 3 * c), **f32)}
+
+
+def _check_scratch(scratch: dict, bw: int, c: int, device) -> None:
+    """Raises unless scratch holds what attention_scratch(bw, c, device)
+    allocates: float32, contiguous, 16-byte aligned tensors of its shapes."""
+    m = bw * KERNEL_TOKENS
+    expected = {"a": (m, c), "qkv": (m, 3 * c)}
+    if set(scratch) != set(expected):
+        raise ValueError(f"window_attention_fused scratch must be {sorted(expected)}, "
+                         f"got {sorted(scratch)}")
+    for key, t in scratch.items():
+        if t.dtype != torch.float32 or t.device != torch.device(device):
+            raise ValueError(
+                f"scratch {key} must be float32 on {device}, got {t.dtype} on {t.device}")
+        if tuple(t.shape) != expected[key]:
+            raise ValueError(f"scratch {key} must be {expected[key]}, got {tuple(t.shape)}")
+        if not t.is_contiguous() or t.data_ptr() % KERNEL_ALIGN:
+            raise ValueError(f"scratch {key} must be contiguous and {KERNEL_ALIGN}-byte aligned")
+
+
 def _check(name: str, x: torch.Tensor, heads: int, num_windows: int, operands: dict) -> None:
     """Types, shapes and devices of the layout contract; raises on a mismatch."""
     if x.dim() != 3:
@@ -130,6 +158,9 @@ def _check_kernel_shapes(name: str, x: torch.Tensor, heads: int, operands: dict)
         )
     if name == "swin_block_fused" and c not in KERNEL_BLOCK_WIDTHS:
         raise ValueError(f"the swin_block_fused kernel takes C in {KERNEL_BLOCK_WIDTHS}, got {c}")
+    if name == "window_attention_fused" and x.shape[0] > KERNEL_MAX_WINDOWS:
+        raise ValueError(f"the window_attention_fused kernels take at most {KERNEL_MAX_WINDOWS} "
+                         f"windows, got BW {x.shape[0]}")
     if not all(t.is_contiguous() for t in (x, *operands.values())):
         raise ValueError(f"{name} needs contiguous tensors on the card")
     if any(t.data_ptr() % KERNEL_ALIGN for t in (x, *operands.values())):
@@ -144,13 +175,13 @@ def _run(name: str, x: torch.Tensor, operands: dict, heads: int, num_windows: in
          reference, launch) -> torch.Tensor:
     """What both wrappers do: check the layout contract, send a CPU tensor to
     the plain version, and on the card call launch(lib, out, stream), which
-    queues the kernel's launches and returns a cudaError code.
+    queues the kernels' launches and returns a cudaError code.
 
-    launch allocates the kernels' one scratch buffer in device memory, the
-    attention output attn (csrc/window_attn.cu says why); the block's x2 and
-    hidden layer stay on chip. Freed when launch returns, it is safe: the
-    caching allocator reuses a block only for work queued after the kernels
-    on the same stream."""
+    launch allocates the kernels' scratch in device memory (swin_block_fused:
+    the attention output attn, with x2 and the hidden layer kept on chip;
+    window_attention_fused: attention_scratch; csrc/window_attn.cu says
+    why). Freed when launch returns, it is safe: the caching allocator reuses
+    a block only for work queued after the kernels on the same stream."""
     _check(name, x, heads, num_windows, operands)
     if x.device.type == "cpu":
         return reference(x, **operands, heads=heads, num_windows=num_windows)
@@ -180,15 +211,28 @@ def window_attention_fused(
                     mask=mask, gamma1=gamma1, beta1=beta1)
 
     def launch(lib, out, stream):
-        attn = torch.empty_like(x_windows)
-        return lib.window_attention_launch(
-            *_ptrs(x_windows, w_qkv, b_qkv, w_proj, b_proj, bias, mask), mask.shape[0],
-            *_ptrs(gamma1, beta1, attn, out), x_windows.shape[0], x_windows.shape[2], heads,
-            stream,
-        )
+        bw, _, c = x_windows.shape
+        return launch_attention(lib, x_windows, operands, heads,
+                                attention_scratch(bw, c, x_windows.device), out, stream)
 
     return _run("window_attention_fused", x_windows, operands, heads, num_windows,
                 window_attention_fused_reference, launch)
+
+
+def launch_attention(lib, x, operands: dict, heads: int, scratch: dict, out, stream) -> int:
+    """Queue window_attention_fused's kernels on stream, with the given
+    scratch (checked: attention_scratch's shapes, 16-byte aligned); returns
+    the cudaError code. The wrapper's launch; a card test calls it with its
+    own scratch to read the intermediates back."""
+    bw, _, c = x.shape
+    _check_scratch(scratch, bw, c, x.device)
+    o = operands
+    return lib.window_attention_launch(
+        *_ptrs(x, o["w_qkv"], o["b_qkv"], o["w_proj"], o["b_proj"], o["bias"], o["mask"]),
+        o["mask"].shape[0],
+        *_ptrs(o["gamma1"], o["beta1"], scratch["a"], scratch["qkv"], out),
+        bw, c, heads, stream,
+    )
 
 
 def swin_block_fused(

@@ -231,7 +231,7 @@ def measure_model(torch, np, port, model_name: str, n_clips: int, batches, tmp) 
     print(f"{model_name} profile at file_batch {default.file_batch}: wall "
           f"{prof['wall_ms']:.1f} ms, device busy {prof['device_busy_ms']:.1f} ms "
           f"({100 * prof['busy_share']:.1f} %)")
-    for row in prof["kernels"][:8]:
+    for row in prof["kernels"][:12]:
         print(f"  {row['ms']:9.3f} ms  x{row['count']:<4d} {row['name'][:110]}")
     out = {"clips": n_clips, "clip_seconds": CLIP_SECONDS, "sweep": sweep, "profile": prof}
     if family in ("pann", "clap"):

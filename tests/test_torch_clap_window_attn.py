@@ -18,7 +18,9 @@ to 2-3e-6 at C = 96, and C = 768 sums eight times longer.
 The CUDA kernels run only on the card: their cases carry the `cuda` marker
 and skip without one. Their arithmetic, 3xTF32 products on the tensor cores
 (csrc/window_attn.cu), is emulated here in torch at every GEMM shape they
-run, against float64.
+run, against float64: the per-window products of swin_block_fused and
+window_attention_fused's token-tile GEMMs at stage 4; the wrapper's checks
+of window_attention_fused's scratch are held to what the kernels take.
 """
 
 import numpy as np
@@ -101,18 +103,20 @@ def _tf32(x: torch.Tensor) -> torch.Tensor:
     return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
 
 
-def _tf32_product(a: torch.Tensor, b: torch.Tensor, split: bool) -> torch.Tensor:
-    """a @ b as the kernels form it, in k-steps of 8: each k-step's products
-    summed exactly (float64), rounded to float32 and added to a float32
-    accumulator. split: 3xTF32 (a_lo b_hi + a_hi b_lo + a_hi b_hi with
-    hi = tf32(x), lo = tf32(x - hi)); otherwise plain 1xTF32 (a_hi b_hi)."""
+def _tf32_product(a: torch.Tensor, b: torch.Tensor, split: bool, fold: int = 8) -> torch.Tensor:
+    """a @ b as the kernels form it, in folds of `fold` deep (8: one k-step,
+    as swin_block_fused's kernels fold; 32: one slab, as window_attention_fused's
+    GEMMs fold): each fold's products summed exactly (float64),
+    rounded to float32 and added to a float32 accumulator. split: 3xTF32
+    (a_lo b_hi + a_hi b_lo + a_hi b_hi with hi = tf32(x), lo = tf32(x - hi));
+    otherwise plain 1xTF32 (a_hi b_hi)."""
     a_hi, b_hi = _tf32(a), _tf32(b)
     a_lo, b_lo = _tf32(a - a_hi), _tf32(b - b_hi)
     k = a.shape[1]
 
-    def steps(x, y):  # [K/8, M, N]: the product of each 8-deep k-step
-        return torch.einsum("msk,skn->smn", x.double().reshape(-1, k // 8, 8),
-                            y.double().reshape(k // 8, 8, -1))
+    def steps(x, y):  # [K/fold, M, N]: the product of each fold
+        return torch.einsum("msk,skn->smn", x.double().reshape(-1, k // fold, fold),
+                            y.double().reshape(k // fold, fold, -1))
 
     partial = steps(a_hi, b_hi)
     if split:
@@ -139,6 +143,30 @@ def test_3xtf32_products_keep_float32_accuracy(gemm):
     plain_err = float((_tf32_product(a, b, False).double() - exact).abs().max()) / scale
     assert split_err <= SPLIT_RTOL, f"3xTF32 {split_err:.3e}"
     assert plain_err > 100 * SPLIT_RTOL, f"1xTF32 {plain_err:.3e}"
+
+
+@pytest.mark.parametrize("gemm", ["qkv", "proj"])
+def test_3xtf32_token_tile_gemm_keeps_float32_accuracy(gemm):
+    """window_attention_fused's GEMMs at stage 4 on one [128, 768] token tile
+    (gemm_3xtf32_kernel's BM rows), each slab of 32 folded as the kernel
+    does, with the epilogue (+ bias; proj also + the residual x): within
+    SPLIT_RTOL of float64, relative to the largest output. A is LN1(x) (about
+    1) for qkv and attn (softmax averages of v, about 0.3) for proj."""
+    c = 768
+    n = 3 * c if gemm == "qkv" else c
+    rng = np.random.default_rng(n)
+    a = torch.from_numpy(rng.standard_normal((128, c)).astype(np.float32))
+    if gemm == "proj":
+        a = a * 0.3
+    b = torch.from_numpy((0.05 * rng.standard_normal((c, n))).astype(np.float32))
+    bias = torch.from_numpy((0.01 * rng.standard_normal(n)).astype(np.float32))
+    x = torch.from_numpy((0.5 * rng.standard_normal((128, n))).astype(np.float32))
+    ours = _tf32_product(a, b, True, fold=32) + bias
+    exact = a.double() @ b.double() + bias.double()
+    if gemm == "proj":
+        ours, exact = x + ours, x.double() + exact
+    err = float((ours.double() - exact).abs().max()) / float(exact.abs().max())
+    assert err <= SPLIT_RTOL, f"{gemm}: 3xTF32 {err:.3e}"
 
 
 def test_tf32_rounding_is_round_to_nearest_ties_away():
@@ -219,6 +247,32 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         )
 
 
+def test_attention_scratch_checks_refuse_what_the_kernels_do_not_take():
+    """window_attention_fused's scratch (attention_scratch) passes its check;
+    another shape, type, a missing buffer or a view off 16-byte alignment
+    raises, and so does a BW past the GEMM's grid."""
+    bw, c = 3, 96
+    scratch = window_attn.attention_scratch(bw, c, "cpu")
+    assert {k: tuple(t.shape) for k, t in scratch.items()} == {
+        "a": (bw * N, c), "qkv": (bw * N, 3 * c)}
+    window_attn._check_scratch(scratch, bw, c, "cpu")
+    check = window_attn._check_scratch
+    with pytest.raises(ValueError, match="qkv must be"):
+        check({**scratch, "qkv": torch.empty((bw * N, c))}, bw, c, "cpu")
+    with pytest.raises(ValueError, match="a must be"):
+        check(scratch, bw + 1, c, "cpu")
+    with pytest.raises(ValueError, match="float32"):
+        check({**scratch, "a": scratch["a"].double()}, bw, c, "cpu")
+    with pytest.raises(ValueError, match="scratch must be"):
+        check({k: v for k, v in scratch.items() if k != "qkv"}, bw, c, "cpu")
+    off = torch.empty(bw * N * c + 1)[1:].reshape(bw * N, c)  # 4 bytes past an aligned start
+    with pytest.raises(ValueError, match="aligned"):
+        check({**scratch, "a": off}, bw, c, "cpu")
+    wide = torch.empty((1, N, c)).expand(window_attn.KERNEL_MAX_WINDOWS + 1, N, c)
+    with pytest.raises(ValueError, match="at most"):
+        window_attn._check_kernel_shapes("window_attention_fused", wide, 4, {})
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_kernel_matches_plain_version_on_the_card(cuda_device, case):
@@ -247,3 +301,30 @@ def test_wrapper_raises_on_what_the_kernel_does_not_take(cuda_device):
     with pytest.raises(ValueError, match="on cpu"):
         window_attn.swin_block_fused(**{**args, "bias": args["bias"].cpu()}, heads=4,
                                      num_windows=64)
+
+
+@pytest.mark.cuda
+def test_attention_intermediates_on_the_card(cuda_device):
+    """The launch with the test's own scratch gives the wrapper's output, and
+    leaves q, k, v (with b_qkv) and attn in it within the card bound of the
+    plain version's."""
+    from frechet_audio_distance_exported_tpu_torch.ops import _build
+
+    c, heads, nw = 96, 4, 64
+    args = operands("window_attention_fused", make_inputs(c, heads, nw, True, 1, seed=2),
+                    cuda_device)
+    x = args.pop("x_windows")
+    scratch = window_attn.attention_scratch(x.shape[0], c, cuda_device)
+    out = torch.empty_like(x)
+    stream = torch.cuda.current_stream(cuda_device).cuda_stream
+    err = window_attn.launch_attention(_build.load_library(), x, args, heads, scratch, out,
+                                       window_attn.ctypes.c_void_p(stream))
+    torch.cuda.synchronize()
+    assert err == 0
+    assert torch.equal(out, window_attn.window_attention_fused(x, **args, heads=heads,
+                                                               num_windows=nw))
+    h = window_attn._layer_norm(x, args["gamma1"], args["beta1"]).reshape(-1, c)
+    qkv = torch.matmul(h, args["w_qkv"]) + args["b_qkv"]
+    assert float((scratch["qkv"] - qkv).abs().max()) <= CARD_ATOL
+    attn = torch.matmul(scratch["a"], args["w_proj"]) + args["b_proj"] + x.reshape(-1, c)
+    assert float((attn - out.reshape(-1, c)).abs().max()) <= CARD_ATOL

@@ -175,15 +175,17 @@ def _radices(m):
     return out
 
 
-def _kernel_model(frames, window, twiddle, bands, taps):
-    """float32 numpy model of csrc/pann_logmel.cu over explicit frames [..., n_fft]:
-    the window product, z[n] = x[2n] + i x[2n+1], a Stockham FFT of n_fft/2
-    points (radix-4 stages, then radix 2), the split step to the n_fft/2 + 1
-    bins of the real spectrum, power, the sparse mel sum, and the dB."""
-    n_fft = frames.shape[-1]
+def _kernel_spectrum(frames, window, twiddle, magnitude=False):
+    """float32 numpy model of csrc/rfft.cuh over explicit frames [..., W]:
+    the window product zero-padded to n_fft = len(twiddle) samples,
+    z[n] = x[2n] + i x[2n+1], a Stockham FFT of n_fft/2 points (radix-4
+    stages, then radix 2), and the split step to the n_fft/2 + 1 bins of the
+    real spectrum: their power, or their magnitude."""
+    n_fft = twiddle.shape[0]
     m = n_fft // 2
     tw = (twiddle[:, 0] + 1j * twiddle[:, 1]).astype(np.complex64)
-    x = frames.astype(np.float32) * window
+    x = np.zeros(frames.shape[:-1] + (n_fft,), np.float32)
+    x[..., : len(window)] = frames[..., : len(window)].astype(np.float32) * window
     z = (x[..., 0::2] + np.complex64(1j) * x[..., 1::2]).astype(np.complex64)
     ns = 1
     for radix in _radices(m):
@@ -208,11 +210,23 @@ def _kernel_model(frames, window, twiddle, bands, taps):
     odd = np.complex64(-0.5j) * (a - c)
     spectrum = even + tw[k] * odd
     power = (spectrum.real * spectrum.real + spectrum.imag * spectrum.imag).astype(np.float32)
-    mel = np.zeros(power.shape[:-1] + (len(bands),), np.float32)
+    return np.sqrt(power) if magnitude else power
+
+
+def _pann_db(mel):
+    return 10.0 * np.log10(np.maximum(mel, np.float32(1e-10)))
+
+
+def _kernel_model(frames, window, twiddle, bands, taps, magnitude=False, out=_pann_db):
+    """float32 numpy model of an FFT log-mel kernel (csrc/pann_logmel.cu by
+    default; csrc/vggish_logmel.cu with magnitude=True and its log): the
+    spectrum of _kernel_spectrum, the sparse mel sum, and the output map."""
+    spectrum = _kernel_spectrum(frames, window, twiddle, magnitude)
+    mel = np.zeros(spectrum.shape[:-1] + (len(bands),), np.float32)
     for j, (start, count, offset) in enumerate(bands):
         for i in range(count):
-            mel[..., j] += power[..., start + i] * taps[offset + i]
-    return 10.0 * np.log10(np.maximum(mel, np.float32(1e-10)))
+            mel[..., j] += spectrum[..., start + i] * taps[offset + i]
+    return out(mel)
 
 
 @pytest.mark.parametrize("sr", RATES)

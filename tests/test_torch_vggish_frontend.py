@@ -7,7 +7,10 @@ port's wrapper runs for a CPU tensor. Bound: atol 2e-5, the JAX suite's own
 bound between its kernel and its shipped path (test_pallas_frontend.py).
 
 The CUDA kernel itself runs only on the card: its cases skip without one.
-What surrounds it (the operand layout it reads) is checked here in numpy.
+What surrounds it is checked here in numpy: the sparse HTK tables it reads,
+and a float32 numpy model of its algorithm (csrc/rfft.cuh with the
+400-sample window zero-padded to 512, the magnitude, the sparse mel and the
+log; the model is the PANN test's) against the plain version.
 On a machine with a card, `python -m pytest tests/test_torch_vggish_frontend.py`
 runs all of it (tests/conftest.py keeps JAX on the CPU); where jax is not
 installed, the JAX comparisons skip and the card's cases still run.
@@ -21,10 +24,17 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(2)
 
-from frechet_audio_distance_exported_tpu_torch.ops import _build, cuda_frontend, launches  # noqa: E402
+from frechet_audio_distance_exported_tpu_torch.ops import (  # noqa: E402
+    _build,
+    cuda_frontend,
+    dsp,
+    launches,
+)
 from frechet_audio_distance_exported_tpu_torch.ops import frontends as fe  # noqa: E402
+from test_torch_pann_frontend import _kernel_model, _kernel_spectrum  # noqa: E402
 
 ATOL = 2e-5
+RAGGED_FRAMES = 296  # chip_smoke.py's ragged T
 
 
 def _wave(bsz, length, seed):
@@ -126,27 +136,71 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         cuda_frontend.fused_vggish_logmel(w, -1)
 
 
-def test_kernel_operands_reproduce_the_plain_version():
-    """The kernel reads the DFT as (cos, sin) pairs over 400 rows with zero
-    bins past 256. Evaluated with numpy over explicit frames, that layout
-    must give the plain chunk-sum result."""
-    nbin_pad = 288
-    dft, mel = cuda_frontend._kernel_operands(torch.device("cpu"), nbin_pad)
-    dft, mel = dft.numpy().astype(np.float64), mel.numpy().astype(np.float64)
-    assert dft.shape == (fe.VGGISH_WINDOW, nbin_pad, 2)
-    assert not dft[:, fe.VGGISH_FFT // 2 + 1 :].any()
-    num_frames = 100
-    w = _wave(2, (num_frames - 1) * fe.VGGISH_HOP + 300, seed=7)  # ends inside the last frame
-    padded = np.zeros((2, (num_frames - 1) * fe.VGGISH_HOP + fe.VGGISH_WINDOW))
-    padded[:, : w.shape[1]] = w
+def _frames(w, num_frames):
+    """[B, num_frames, 400] uncentered frames of w, samples past its end read 0."""
+    padded = np.zeros((w.shape[0], (num_frames - 1) * fe.VGGISH_HOP + fe.VGGISH_WINDOW), np.float32)
+    n = min(w.shape[1], padded.shape[1])
+    padded[:, :n] = w[:, :n]
     idx = np.arange(num_frames)[:, None] * fe.VGGISH_HOP + np.arange(fe.VGGISH_WINDOW)[None, :]
-    frames = padded[:, idx]  # [B, T, 400]
-    re = frames @ dft[..., 0]
-    im = frames @ dft[..., 1]
-    mag = np.sqrt(re * re + im * im)[..., : fe.VGGISH_FFT // 2 + 1]
-    emulated = np.log(mag @ mel + fe.VGGISH_LOG_OFFSET)
+    return padded[:, idx]
+
+
+def _kernel_tables():
+    return [t.numpy() for t in cuda_frontend._kernel_operands(torch.device("cpu"))]
+
+
+def test_sparse_htk_tables_rebuild_the_mel_matrix():
+    """The kernel's (start, count, offset) bands and packed taps give back
+    the HTK matrix exactly: 461 taps, none on the DC row. The window is the
+    400-sample one of the plain version's DFT matrix; the twiddles are 512."""
+    tables = cuda_frontend._kernel_operands(torch.device("cpu"))
+    assert all(t.is_contiguous() for t in tables)  # the kernel reads raw row-major pointers
+    window, twiddle, bands, taps = (t.numpy() for t in tables)
+    assert window.dtype == twiddle.dtype == taps.dtype == np.float32 and bands.dtype == np.int32
+    assert window.shape == (fe.VGGISH_WINDOW,) and twiddle.shape == (fe.VGGISH_FFT, 2)
+    assert bands.shape == (fe.VGGISH_MEL_BINS, 3)
+    mel = cuda_frontend._htk_mel_np()
+    rebuilt = np.zeros_like(mel)
+    for j, (start, count, offset) in enumerate(bands):
+        rebuilt[start : start + count, j] = taps[offset : offset + count]
+    assert np.array_equal(rebuilt, mel)
+    assert len(taps) == np.count_nonzero(mel) == 461
+    assert bands[:, 0].min() >= 1 and bands[:, 1].min() == 1  # DC row untouched; a 1-tap band
+    assert np.array_equal(
+        window, dsp.windowed_dft_matrices(fe.VGGISH_WINDOW, fe.VGGISH_FFT)[0][:, 0]
+    )
+
+
+@pytest.mark.parametrize("num_frames,length", [
+    (96, 96 * fe.VGGISH_HOP + 240),
+    (RAGGED_FRAMES, (RAGGED_FRAMES - 1) * fe.VGGISH_HOP + 300),
+])
+def test_fft_model_of_the_kernel_matches_the_plain_version(num_frames, length):
+    """The kernel's algorithm, modelled in float32 numpy over explicit frames
+    (the 400-sample window zero-padded to 512, the Stockham stages, the split
+    step, the magnitude, the sparse mel and the log), gives the plain
+    chunk-sum log-mel within 1e-5 absolute; at the ragged T the wave ends
+    inside the last frame, which reads zeros past it."""
+    w = _wave(2, length, seed=num_frames)
+    window, twiddle, bands, taps = _kernel_tables()
+    model = _kernel_model(_frames(w, num_frames), window, twiddle, bands, taps, magnitude=True,
+                          out=lambda mel: np.log(mel + np.float32(fe.VGGISH_LOG_OFFSET)))
     ref = cuda_frontend.fused_vggish_logmel_reference(torch.from_numpy(w), num_frames).numpy()
-    np.testing.assert_allclose(emulated, ref, rtol=0, atol=ATOL)
+    assert model.shape == ref.shape == (2, num_frames, fe.VGGISH_MEL_BINS)
+    np.testing.assert_allclose(model, ref, rtol=0, atol=1e-5)
+
+
+def test_fft_model_magnitude_is_numpy_rfft():
+    """The model's magnitude of the 257 bins is numpy's real FFT of the
+    windowed frames zero-padded to 512, within float32 rounding of the
+    largest bin."""
+    w = _wave(1, 40 * fe.VGGISH_HOP, seed=5)
+    window, twiddle, _, _ = _kernel_tables()
+    frames = _frames(w, 32)
+    ours = _kernel_spectrum(frames, window, twiddle, magnitude=True)
+    exact = np.abs(np.fft.rfft(frames.astype(np.float64) * window, n=fe.VGGISH_FFT, axis=-1))
+    assert ours.shape == exact.shape == (1, 32, fe.VGGISH_FFT // 2 + 1)
+    assert np.abs(ours - exact).max() <= 1e-6 * exact.max()
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
