@@ -18,17 +18,26 @@ FrechetAudioDistance(weights="random", device="cuda"):
   pann-8k and pann-32k (the resample path and the other two geometries);
 - CLAP: scores two 48 kHz corpora (with a 12 s clip, truncated, and a
   0.5 s one), then the 16 kHz part (resampled as it is loaded), and holds
-  card embeddings against the CPU's on the pipeline's resample path.
-The CLAP pair, the pann-32k pair and a VGGish pair (8 clips a side) are
-also scored on the CPU plain path: the card's FAD must agree within 1e-3,
-absolute and relative.
+  card embeddings against the CPU's on the pipeline's resample path;
+- Encodec, which has no hand kernel (its convolutions, GroupNorm and LSTM
+  are cuDNN's): encodec-24k on 24 kHz mono corpora and encodec-48k on 48
+  kHz stereo ones (8 sines and 8 noise clips of 10 s, a 4 s clip whose
+  padded frames are masked, a 12 s clip that the batch skips), then
+  encodec-48k with channels=1 on the 16 kHz part (mono duplicated to two
+  channels, each resampled). Each holds card embeddings against the CPU's,
+  scores 4 clips a side on both, and compares the LSTM module alone on the
+  card and the CPU at 750 and 1500 steps: cuDNN must not run it in TF32.
+The CLAP pair, the pann-32k pair, a VGGish pair (8 clips a side) and the
+Encodec pairs are also scored on the CPU plain path: the card's FAD must
+agree within 1e-3, absolute and relative.
 Each path runs with all four launch counts set to 0 just before it and read
 just after, so the counts show which kernels it went through: VGGish and
 PANN launch only their own log-mel kernel; CLAP launches the PANN log-mel
 kernel once per chunk, swin_block_fused exactly 10 times as often and
-window_attention_fused 2 times. The `kernels` line gives each kernel's
-count on its main path (vggish, pann-16k, clap) and the PANN kernel's count
-on every path that runs it under "launches_by_path".
+window_attention_fused 2 times; Encodec launches none of the four. The
+`kernels` line gives each kernel's count on its main path (vggish,
+pann-16k, clap) and the PANN kernel's count on every path that runs it
+under "launches_by_path".
 Any failure raises and the exit code is non-zero. It imports nothing of JAX.
 
 The last line of standard output is
@@ -79,6 +88,11 @@ F32_FLOPS = 67e12
 TF32X3_FLOPS = 495e12 / 3
 HBM_BYTES_PER_S = 3.35e12
 FAD_DELTA = 1e-3  # card vs CPU plain path, absolute and relative
+ENCODEC_CLIPS = 8  # per corpus, 10 s each
+ENCODEC_SMALL_CLIPS = 4  # per side, for the CPU plain path's score
+ENCODEC_MASKED_SECONDS = 4.0  # padded to 10 s; frames past 4 s are masked
+ENCODEC_LONG_SECONDS = 12.0  # past Encodec's 10 s: the batch skips it
+LSTM_STEPS = (750, 1500)  # the LSTM's steps on a 10 s clip at 24 and 48 kHz
 
 
 def bound(flops: float, nbytes: float, flops_per_s: float = F32_FLOPS):
@@ -179,6 +193,39 @@ def write_clap_corpora(root: Path, audio_io, np) -> tuple:
     audio_io.write_wav(str(ev / "short.wav"),
                        0.5 * np.sin(2 * np.pi * 440.0 * t[: int(sr * SHORT_SECONDS)]), sr)
     return str(bg), str(ev)
+
+
+def write_encodec_corpora(root: Path, audio_io, np, sr: int, channels: int) -> tuple:
+    """ENCODEC_CLIPS sines and noise clips of 10 s at sr (stereo: a second,
+    different channel), a 4 s clip and a 12 s one on the noise side; and a
+    part of each corpus, ENCODEC_SMALL_CLIPS a side, for the CPU scores."""
+    rng = np.random.default_rng(SEED + sr)
+    bg, ev = root / f"encodec{sr}_bg", root / f"encodec{sr}_ev"
+    bg.mkdir()
+    ev.mkdir()
+    t = np.arange(int(sr * CLIP_SECONDS)) / sr
+
+    def clip(n, freq=None):
+        if freq is None:
+            chans = [rng.standard_normal(n) * 0.1 for _ in range(channels)]
+        else:
+            chans = [0.5 * np.sin(2 * np.pi * freq * t[:n]),
+                     0.3 * np.sin(2 * np.pi * 1.5 * freq * t[:n])][:channels]
+        return chans[0] if channels == 1 else np.stack(chans, axis=1)
+
+    for i in range(ENCODEC_CLIPS):
+        audio_io.write_wav(str(bg / f"sine{i:02d}.wav"), clip(t.size, 220.0 * 2 ** (i / 12)), sr)
+        audio_io.write_wav(str(ev / f"noise{i:02d}.wav"), clip(t.size), sr)
+    audio_io.write_wav(str(ev / "masked.wav"), clip(int(sr * ENCODEC_MASKED_SECONDS)), sr)
+    audio_io.write_wav(str(ev / "long.wav"), clip(int(sr * ENCODEC_LONG_SECONDS)), sr)
+    small = []
+    for src, prefix in ((bg, "sine"), (ev, "noise")):
+        dst = root / f"{src.name}_small"
+        dst.mkdir()
+        for i in range(ENCODEC_SMALL_CLIPS):
+            os.link(src / f"{prefix}{i:02d}.wav", dst / f"{prefix}{i:02d}.wav")
+        small.append(str(dst))
+    return str(bg), str(ev), *small
 
 
 def build_phase(torch, _build) -> None:
@@ -427,26 +474,27 @@ def swin_kernel_phase(torch, np, window_attn, clap, batch: int) -> dict:
     return summary
 
 
-def run_scores(torch, fad, calls, launches, kernel: str, label: str) -> dict:
-    """fad.score for each (name, args, kwargs); each call must raise the count of `kernel`."""
+def run_scores(torch, fad, calls, launches, kernel, label: str) -> dict:
+    """fad.score for each (name, args, kwargs); each call must raise the count
+    of `kernel` (None: a path that has no kernel of its own)."""
     scores = {}
     for name, args, kwargs in calls:
-        before = launches.read()[kernel]
+        before = launches.read()[kernel] if kernel else 0
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         scores[name] = fad.score(*args, **kwargs)
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated()
-        after = launches.read()[kernel]
+        after = launches.read()[kernel] if kernel else 0
         print(f"{label} score {name}: {scores[name]!r} in {time.perf_counter() - t0:.3f} s, "
               f"peak {peak / 2**30:.3f} GiB, {kernel} launches {before} -> {after}")
-        check(after > before, f"{label} score {name} did not launch {kernel}")
+        check(kernel is None or after > before, f"{label} score {name} did not launch {kernel}")
         check(scores[name] != -1 and math.isfinite(scores[name]),
               f"{label} score {name} = {scores[name]}")
     return scores
 
 
-def run_path(torch, fad, calls, launches, kernel: str, label: str):
+def run_path(torch, fad, calls, launches, kernel, label: str):
     """One path: all four launch counts set to 0 just before it and read just
     after. Returns (scores, the counts)."""
     launches.zero()
@@ -460,6 +508,11 @@ def check_only(counts: dict, kernel: str, label: str) -> None:
     """A VGGish or PANN path launched its own kernel and no other."""
     stray = {k: v for k, v in counts.items() if k != kernel and v}
     check(counts[kernel] > 0 and not stray, f"the {label} path launched {counts}")
+
+
+def check_none(counts: dict, label: str) -> None:
+    """An Encodec path launched none of the four kernels."""
+    check(not any(counts.values()), f"the {label} path launched {counts}")
 
 
 def check_clap_counts(counts: dict, label: str) -> None:
@@ -510,6 +563,31 @@ def fad_delta(score_on_card: float, cpu_fad, bg: str, ev: str, label: str) -> No
           f"{label} card vs CPU FAD: {delta} absolute, {rel} relative > {FAD_DELTA}")
 
 
+def lstm_card_vs_cpu(torch, fad, cpu_fad, label: str) -> None:
+    """The Encodec LSTM module (two layers, the skip) alone, on the card and
+    on the CPU with the same weights, at LSTM_STEPS steps: its max abs
+    error with TF32 off, as the public API sets it, and, for contrast, with
+    cuDNN's TF32 on. The error with TF32 off must stay within
+    EMBEDDING_ATOL."""
+    gen = torch.Generator().manual_seed(SEED + 5)
+    for steps in LSTM_STEPS:
+        x = torch.randn((4, fad.model.lstm.hidden_size, steps), generator=gen)
+        with torch.inference_mode():
+            on_cpu = cpu_fad.model.lstm(x)
+            on_card = {}
+            for tf32 in (False, True):
+                torch.backends.cudnn.allow_tf32 = tf32
+                try:
+                    on_card[tf32] = fad.model.lstm(x.to("cuda")).cpu()
+                finally:
+                    torch.backends.cudnn.allow_tf32 = False
+        err = {tf32: float((out - on_cpu).abs().max()) for tf32, out in on_card.items()}
+        print(f"{label} LSTM card vs CPU, T={steps}: max_abs_err {err[False]:.3e} "
+              f"with TF32 off (cuDNN TF32 on: {err[True]:.3e})")
+        check(err[False] <= EMBEDDING_ATOL,
+              f"{label} LSTM card vs CPU at T={steps}: {err[False]} > {EMBEDDING_ATOL}")
+
+
 def timed_warmup(torch, fad, label: str, batch: int) -> None:
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -537,7 +615,10 @@ def main() -> int:
     from frechet_audio_distance_exported_tpu_torch.ops import _build, cuda_frontend, cuda_pann_frontend
     from frechet_audio_distance_exported_tpu_torch.ops import frontends as fe
     from frechet_audio_distance_exported_tpu_torch.ops import launches, window_attn
-    from frechet_audio_distance_exported_tpu_torch.pipeline import DEFAULT_FILE_BATCH
+    from frechet_audio_distance_exported_tpu_torch.pipeline import (
+        DEFAULT_FILE_BATCH,
+        ENCODEC_FILE_BATCH,
+    )
     from frechet_audio_distance_exported_tpu_torch.utils import audio_io
 
     check(Path(port.__file__).resolve().is_relative_to(ROOT),
@@ -576,10 +657,10 @@ def main() -> int:
                 ("bg_ev_device_stats", (bg_dir, ev_dir), {"device_stats": True}),
             ]
 
-        def calculator(model, device="cuda"):
+        def calculator(model, device="cuda", channels=1):
             return FrechetAudioDistance(
                 model_name=model, weights="random", seed=SEED, ckpt_dir=str(tmp / "ck"),
-                device=device,
+                device=device, channels=channels,
             )
 
         def clips16k():
@@ -652,6 +733,39 @@ def main() -> int:
         cpu_clap = calculator("clap", "cpu")
         card_vs_cpu(np, fad, cpu_clap, clips16k(), 16000, (2, 512), "clap")
         fad_delta(scores["bg_ev"], cpu_clap, clap_bg, clap_ev, "clap")
+        del fad, cpu_clap
+
+        # 7. The Encodec paths through the public API. They have no hand
+        #    kernel, so all four counts stay 0. encodec-24k on mono 24 kHz
+        #    corpora, encodec-48k on stereo 48 kHz ones (channels=2), each
+        #    a path of its own; then encodec-48k with channels=1 on the
+        #    16 kHz part: mono duplicated to two channels, each resampled.
+        for model, sr, channels in (("encodec-24k", 24000, 1), ("encodec-48k", 48000, 2)):
+            e_bg, e_ev, e_bg_small, e_ev_small = write_encodec_corpora(
+                tmp, audio_io, np, sr, channels)
+            fad = calculator(model, channels=channels)
+            check(fad.pipeline.file_batch == ENCODEC_FILE_BATCH["cuda"],
+                  f"{model} file_batch is not the CUDA Encodec default")
+            timed_warmup(torch, fad, model, fad.pipeline.file_batch)
+            scores, counts = run_path(torch, fad, pair_calls(e_bg, e_ev), launches, None, model)
+            check_none(counts, model)
+            check_pair_scores(scores, model)
+            cpu_fad = calculator(model, "cpu", channels)
+            clips = [audio_io.load_audio(os.path.join(d, f), sr, channels)
+                     for d, f in ((e_bg, "sine05.wav"), (e_ev, "masked.wav"))]
+            frames = (int(sr * CLIP_SECONDS) + int(sr * ENCODEC_MASKED_SECONDS)) // 320
+            card_vs_cpu(np, fad, cpu_fad, clips, sr, (frames, 128), model)
+            small = fad.score(e_bg_small, e_ev_small)
+            check(small != -1 and math.isfinite(small), f"{model} score(small pair) = {small}")
+            fad_delta(small, cpu_fad, e_bg_small, e_ev_small, model)
+            lstm_card_vs_cpu(torch, fad, cpu_fad, model)
+            del fad, cpu_fad
+        fad = calculator("encodec-48k", channels=1)
+        _, counts = run_path(torch, fad, [("bg_ev", (bg_small, ev_small), {})], launches, None,
+                             "encodec-48k 16 kHz")
+        check_none(counts, "encodec-48k 16 kHz")
+        card_vs_cpu(np, fad, calculator("encodec-48k", "cpu", 1), clips16k(), 16000,
+                    (2 * 48000 * int(CLIP_SECONDS) // 320, 128), "encodec-48k 16 kHz")
 
     print(json.dumps({"kernels": [
         {

@@ -4,9 +4,9 @@ Counterpart of frechet_audio_distance_exported_tpu/fad.py: the same
 constructor kwargs (minus ``mesh``, plus ``device``), the same methods
 (score / get_embeddings / _get_embedding_for_audio /
 calculate_embd_statistics / calculate_frechet_distance / _load_audio_files /
-warmup), the same -1 error sentinel and .npy embedding caches. The port
-runs VGGish, PANN (pann-8k/16k/32k) and CLAP; Encodec raises
-NotImplementedError.
+warmup), the same -1 error sentinel and .npy embedding caches, for all
+seven model names: VGGish, PANN (pann-8k/16k/32k), Encodec (encodec-24k,
+encodec-48k) and CLAP.
 """
 
 from __future__ import annotations
@@ -20,6 +20,7 @@ import torch
 from . import registry
 from .config import resolve_device, set_exact_float32
 from .models.clap import CLAP
+from .models.encodec import encodec_for_rate
 from .models.pann import PANN
 from .models.vggish import VGGish
 from .ops import stats as stats_ops
@@ -27,7 +28,10 @@ from .pipeline import EmbeddingPipeline
 from .utils import audio_io
 from .utils import weights as weight_store
 
+# Re-exported registry tables (JAX fad.py:31-33).
 VALID_MODELS = registry.VALID_MODELS
+PANN_SAMPLE_RATES = registry.PANN_SAMPLE_RATES
+ENCODEC_SAMPLE_RATES = registry.ENCODEC_SAMPLE_RATES
 
 load_audio = audio_io.load_audio
 
@@ -67,10 +71,13 @@ class FrechetAudioDistance:
         Args (reference-compatible):
             ckpt_dir: folder of weight bundles (.npz). Defaults to the JAX
                 package's cache dir (FAD_TPU_CKPT_DIR overrides).
-            model_name: one of VALID_MODELS; the port runs 'vggish',
-                'pann-8k' / 'pann-16k' / 'pann-32k' and 'clap'.
+            model_name: one of VALID_MODELS: 'vggish', 'pann-8k' /
+                'pann-16k' / 'pann-32k', 'encodec-24k' / 'encodec-48k' or
+                'clap'.
             sample_rate: must equal the model default or be None.
-            channels: number of channels (1 for mono).
+            channels: number of channels (1 for mono). Files are mono-mixed
+                as they are loaded where their rank exceeds it, so
+                encodec-48k reads stereo files as stereo only with 2.
             verbose: progress printing.
             audio_load_worker: decode thread count.
         Extensions:
@@ -116,11 +123,18 @@ class FrechetAudioDistance:
         state = weight_store.get_params(
             self.model_name, self.ckpt_dir, weights=self._weights_mode, seed=self._seed
         )
-        family = registry.ported_model_config(self.model_name).family
+        cfg = registry.ported_model_config(self.model_name)
         with torch.device("meta"):  # no throwaway init of the full-size weights
-            model = {"vggish": VGGish, "pann": PANN, "clap": CLAP}[family]()
+            if cfg.family == "encodec":
+                model = encodec_for_rate(cfg.sample_rate)
+            else:
+                model = {"vggish": VGGish, "pann": PANN, "clap": CLAP}[cfg.family]()
         model.load_state_dict(state, assign=True)
         self.model = model.to(self.device).eval()
+        if cfg.family == "encodec":
+            # After the move: cuDNN wants the LSTM's weights in one buffer,
+            # or it warns and copies them on every call.
+            self.model.lstm.flatten_parameters()
         self.pipeline = EmbeddingPipeline(
             self.model_name,
             self.model,
@@ -136,7 +150,8 @@ class FrechetAudioDistance:
 
     def get_embeddings(self, x: List[np.ndarray], sr: int) -> np.ndarray:
         """Embeddings for a list of audio arrays, concatenated over files
-        (VGGish: one row per 0.96 s patch; PANN and CLAP: one row per file)."""
+        (VGGish: one row per 0.96 s patch; Encodec: one row per 320 samples
+        at the model's rate; PANN and CLAP: one row per file)."""
         per_file = self.pipeline.embed_files(x, sr, strict=False)
         embd_lst = [e for e in per_file if e is not None]
         if not embd_lst:

@@ -4,8 +4,10 @@ Every csrc/*.cu file is compiled by nvcc, for sm_90a, into one shared
 library with a plain C interface; no PyTorch header is included, so a build
 takes seconds rather than the minutes a torch extension build takes. The
 sources compile in parallel (one nvcc process each, all started together)
-and are then linked. The library lands in _build/ (listed in .gitignore),
-named by a hash of the sources, the headers they include (csrc/*.cuh) and
+and are then linked. The library lands in the directory that
+FAD_TPU_TORCH_BUILD_DIR names (for an install the user cannot write to; the
+counterpart of the JAX package's FAD_TPU_NATIVE_DIR), else in the package's
+_build/ (listed in .gitignore). It is named by a hash of the sources, the headers they include (csrc/*.cuh) and
 the flags, so an edited source or header is rebuilt and an unchanged tree
 is loaded as it is. A missing nvcc, a failed build or
 a failed load raises.
@@ -24,6 +26,7 @@ from pathlib import Path
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
+BUILD_DIR_ENV = "FAD_TPU_TORCH_BUILD_DIR"
 
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
@@ -47,13 +50,19 @@ def find_nvcc() -> str:
     return nvcc
 
 
+def build_dir() -> Path:
+    """$FAD_TPU_TORCH_BUILD_DIR if it is set and not empty, else BUILD_DIR."""
+    env = os.environ.get(BUILD_DIR_ENV)
+    return Path(env) if env else BUILD_DIR
+
+
 def library_path() -> Path:
     """Where the library for the current sources, headers and flags lives."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in sorted([*CSRC_DIR.glob("*.cu"), *CSRC_DIR.glob("*.cuh")]):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
-    return BUILD_DIR / f"libfad_kernels_{digest.hexdigest()[:16]}.so"
+    return build_dir() / f"libfad_kernels_{digest.hexdigest()[:16]}.so"
 
 
 def build() -> Path:
@@ -64,10 +73,10 @@ def build() -> Path:
     sources = sorted(CSRC_DIR.glob("*.cu"))
     if not sources:
         raise RuntimeError(f"no CUDA sources under {CSRC_DIR}")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out.parent.mkdir(parents=True, exist_ok=True)
     nvcc = find_nvcc()
     tag = f"{out.stem}.{os.getpid()}"
-    objects = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources]
+    objects = [out.parent / f"{tag}.{src.stem}.o" for src in sources]
     tmp = out.with_name(f"{tag}.tmp.so")
     compiles = [
         [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)] for src, obj in zip(sources, objects)

@@ -1,4 +1,5 @@
-"""Batched audio frontends (torch) for the VGGish, PANN and CLAP families.
+"""Batched audio frontends (torch) for the VGGish, PANN and CLAP families,
+and Encodec's host preprocessing.
 
 Counterpart of frechet_audio_distance_exported_tpu/ops/frontends.py:
 - VGGish: mono 16 kHz -> 25 ms / 10 ms periodic-Hann STFT magnitude
@@ -10,6 +11,9 @@ Counterpart of frechet_audio_distance_exported_tpu/ops/frontends.py:
   the 32k-24 time grid).
 - CLAP: the PANN log-mel at 48 kHz (n_fft 1024, hop 480), 1001 frames, on
   a wave zero-padded to 10 s and quantized to the k/32767 grid on the host.
+- Encodec has no log-mel: the host mixes or duplicates channels and
+  resamples each channel (preprocess_for_encodec), and the model reads the
+  [C, S] waveform itself.
 
 The host only decodes, resamples and applies PANN's small reflect pad; the
 frontend runs on the device with per-file frame counts kept out of the
@@ -23,6 +27,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .resample import resample
 
 # VGGish frontend constants (JAX ops/frontends.py L38-46).
 VGGISH_SAMPLE_RATE = 16000
@@ -48,6 +54,25 @@ PANN_CONFIGS = {
 CLAP_SAMPLE_RATE = 48000
 CLAP_MAX_SAMPLES = 10 * CLAP_SAMPLE_RATE  # 480000
 CLAP_TIME_FRAMES = 1001
+
+# Encodec constants (JAX ops/frontends.py L62-80).
+ENCODEC_MAX_AUDIO_SECONDS = 10
+ENCODEC_CONFIGS = {
+    24000: {
+        "sample_rate": 24000,
+        "channels": 1,
+        "embedding_dim": 128,
+        "hop_length": 320,
+        "max_samples": ENCODEC_MAX_AUDIO_SECONDS * 24000,
+    },
+    48000: {
+        "sample_rate": 48000,
+        "channels": 2,
+        "embedding_dim": 128,
+        "hop_length": 320,
+        "max_samples": ENCODEC_MAX_AUDIO_SECONDS * 48000,
+    },
+}
 
 
 def vggish_num_frames(num_samples: int) -> int:
@@ -148,3 +173,78 @@ def clap_logmel_batch(padded_wave: torch.Tensor, n_valid_frames: torch.Tensor) -
     return pann_logmel_batch(
         padded_wave, CLAP_SAMPLE_RATE, CLAP_TIME_FRAMES, n_valid_frames, 32767.0
     )
+
+
+# Copied from frechet_audio_distance_exported_tpu/ops/frontends.py:455.
+def preprocess_for_encodec(
+    audio: np.ndarray,
+    sample_rate: int,
+    target_sample_rate: int = 24000,
+    target_channels: int = 1,
+    return_tensor: bool = True,
+):
+    """Encodec: channel conversion (mono mix, or a mono file duplicated to
+    two channels), then a resample per channel, then [C, S] float32; with
+    return_tensor a torch [1, C, S] tensor."""
+    if target_sample_rate not in ENCODEC_CONFIGS:
+        raise ValueError(
+            f"Unsupported target sample rate: {target_sample_rate}. "
+            f"Must be one of {list(ENCODEC_CONFIGS.keys())}"
+        )
+    audio = np.asarray(audio)
+    if audio.ndim == 1:
+        num_channels = 1
+    elif audio.ndim == 2:
+        num_channels = audio.shape[1]
+    else:
+        raise ValueError(f"Audio must be 1D or 2D, got shape {audio.shape}")
+
+    if target_channels == 1:
+        if num_channels > 1:
+            audio = np.mean(audio, axis=1)
+    elif target_channels == 2:
+        if num_channels == 1:
+            if audio.ndim == 1:
+                audio = np.column_stack([audio, audio])
+            else:
+                audio = np.concatenate([audio, audio], axis=1)
+
+    if audio.ndim == 2 and audio.shape[1] != target_channels:
+        raise ValueError(
+            f"Channel conversion failed. Expected {target_channels} channels, got {audio.shape[1]}"
+        )
+
+    if sample_rate != target_sample_rate:
+        if audio.ndim == 1:
+            audio = resample(audio, sample_rate, target_sample_rate)
+        else:
+            audio = np.column_stack(
+                [resample(audio[:, c], sample_rate, target_sample_rate) for c in range(audio.shape[1])]
+            )
+
+    audio = audio.astype(np.float32)
+    audio = audio.reshape(1, -1) if audio.ndim == 1 else audio.T  # [C, S]
+    if return_tensor:
+        return torch.from_numpy(np.ascontiguousarray(audio))[None, :, :]  # [1, C, S]
+    return audio
+
+
+# Copied from frechet_audio_distance_exported_tpu/ops/frontends.py:507.
+def pad_to_fixed_length(x, target_sample_rate: int):
+    """Zero-pad a [..., S] waveform (numpy or torch) to exactly 10 s; raise
+    beyond."""
+    config = ENCODEC_CONFIGS[target_sample_rate]
+    max_samples = config["max_samples"]
+    samples = x.shape[-1]
+    if samples > max_samples:
+        raise ValueError(
+            f"Audio too long: {samples} samples > {max_samples} max samples "
+            f"({ENCODEC_MAX_AUDIO_SECONDS} seconds at {target_sample_rate}Hz). "
+            f"Please split audio into shorter segments."
+        )
+    if samples < max_samples:
+        if isinstance(x, torch.Tensor):
+            x = torch.nn.functional.pad(x, (0, max_samples - samples))
+        else:
+            x = np.pad(x, [(0, 0)] * (x.ndim - 1) + [(0, max_samples - samples)])
+    return x

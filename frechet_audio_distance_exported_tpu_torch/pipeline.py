@@ -1,4 +1,4 @@
-"""Batched embedding pipeline (VGGish, PANN, CLAP) on torch tensors.
+"""Batched embedding pipeline (VGGish, PANN, Encodec, CLAP) on torch tensors.
 
 Counterpart of frechet_audio_distance_exported_tpu/pipeline.py. The host
 decodes, mono-mixes, resamples and applies PANN's reflect pad; waveforms are
@@ -16,6 +16,11 @@ on the device. Planning rules, each part of the reference numerics:
 - CLAP: every file is truncated or zero-padded towards 10 s at 48 kHz and
   quantized to the k/32767 grid on the host; files group by buffer length
   and each runs 1001 log-mel frames. One row per file.
+- Encodec: each file becomes [C, S] at the model's rate (C = 1 at 24 kHz, 2
+  at 48 kHz) and is zero-padded to 10 s; files over 10 s are refused. The
+  file keeps original_samples // 320 frames, where original_samples is its
+  length at the model's rate taken before the resample (JAX
+  pipeline.py:885-890). One row per kept frame.
 Row order of the concatenated embedding matrix is files in input order,
 patches in time order within a file.
 """
@@ -32,13 +37,22 @@ from .ops import frontends as fe
 from .ops import stats as stats_ops
 from .ops.resample import resample
 
-# Files per device program by default, per device type, for every family.
-# CPU keeps the JAX package's non-TPU default. CUDA: for VGGish, 64 is the
+# Files per device program by default, per device type, for every family but
+# Encodec. CPU keeps the JAX package's non-TPU default. CUDA: for VGGish, 64 is the
 # largest power of two under the 102-file clamp that patch_chunk=1024 puts
 # on 10 s clips (10 patches each), so full chunks stay full; for PANN, 64
 # was the best of a 16/32/64/128 sweep on an H100 with pann-16k and 10 s
 # clips (port_measure.py). PERF.md records both sweeps and their peak memory.
 DEFAULT_FILE_BATCH = {"cpu": 32, "cuda": 64}
+
+# Encodec's files per device program. CPU: the JAX package's non-TPU default
+# (pipeline.py:319-326). CUDA: 64 was the best of a 16/32/64 sweep on an
+# H100 at both rates with 10 s clips (port_measure.py; throughput rose with
+# the batch, since the LSTM's steps run one after another whatever B is),
+# at a peak of 7.5 GiB (24 kHz) and 18.7 GiB (48 kHz stereo). A stage-1
+# activation [64, 32, 480006] stays far below 2^31 elements. PERF.md records
+# the sweep.
+ENCODEC_FILE_BATCH = {"cpu": 16, "cuda": 64}
 
 # Upper bound on one PANN file's log-mel frames (JAX pipeline.py:73): beyond
 # it a single file's block-1 activations are too large to run alone, and the
@@ -74,14 +88,15 @@ def as_int16_exact(x: np.ndarray, full_scale: float = 32768.0) -> Optional[np.nd
 
 
 def _pack_wave(rows, b: int, length: int, full_scale: float = 32768.0) -> np.ndarray:
-    """Zero-padded batch buffer [b, length]; int16 iff every row is int16
+    """Zero-padded batch buffer [b, *row_dims, length] (JAX pipeline.py:53-65);
+    rows are padded along their last axis. int16 iff every row is int16
     (mixed chunks are dequantised on the host into a float32 buffer)."""
     all_i16 = all(r.dtype == np.int16 for r in rows)
-    wave = np.zeros((b, length), np.int16 if all_i16 else np.float32)
+    wave = np.zeros((b,) + rows[0].shape[:-1] + (length,), np.int16 if all_i16 else np.float32)
     for row, r in enumerate(rows):
         if r.dtype == np.int16 and not all_i16:
             r = r.astype(np.float32) / full_scale
-        wave[row, : r.shape[0]] = r
+        wave[row, ..., : r.shape[-1]] = r
     return wave
 
 
@@ -149,6 +164,14 @@ def _fused_mel_cnn_stats_step(
     return _fold_stats(state, emb, mask)
 
 
+def _fused_encodec_stats_step(model, wave, frames: torch.Tensor, state):
+    """Encodec chunk + stats update; per-file valid frame counts mask the
+    padded tail (JAX pipeline.py:277-283)."""
+    emb = model(wave)  # [B, T, d]
+    mask = torch.arange(emb.shape[1], device=emb.device)[None, :] < frames[:, None]
+    return _fold_stats(state, emb, mask)
+
+
 class StatsSink:
     """Sink marker: fold streaming statistics into each chunk on the device
     (embeddings never leave it)."""
@@ -173,7 +196,8 @@ class EmbeddingPipeline:
         self.model = model
         self.device = torch.device(device)
         if file_batch is None:
-            file_batch = DEFAULT_FILE_BATCH[self.device.type]
+            defaults = ENCODEC_FILE_BATCH if self.cfg.family == "encodec" else DEFAULT_FILE_BATCH
+            file_batch = defaults[self.device.type]
         self.file_batch = file_batch
         if patch_chunk is None:
             # The VGGish patch budget must admit file_batch full 10 s files;
@@ -202,6 +226,8 @@ class EmbeddingPipeline:
                 return self._embed_vggish(audio_list, sr, strict, sink)
             if self.cfg.family == "clap":
                 return self._embed_clap(audio_list, sr, strict, sink)
+            if self.cfg.family == "encodec":
+                return self._embed_encodec(audio_list, sr, strict, sink)
             return self._embed_pann(audio_list, sr, strict, sink)
 
     def embed_single(self, audio: np.ndarray, sr: int) -> np.ndarray:
@@ -461,6 +487,65 @@ class EmbeddingPipeline:
             plan_fn=lambda s_bucket: (s_bucket, fe.CLAP_SAMPLE_RATE, fe.CLAP_TIME_FRAMES),
             i16_full_scale=32767.0,
         )
+
+    def _encodec_prep(self, audio: np.ndarray, sr: int):
+        """One file's host steps (JAX pipeline.py:882-899): [C, S] at the
+        model's rate (int16 where it is exact) and its valid frame count."""
+        target_sr = self.cfg.sample_rate
+        config = fe.ENCODEC_CONFIGS[target_sr]
+        audio = np.asarray(audio)
+        # The length at the model's rate, taken before the resample.
+        original_samples = int(len(audio) * target_sr / sr) if sr != target_sr else len(audio)
+        pre = fe.preprocess_for_encodec(
+            audio, sr, target_sample_rate=target_sr,
+            target_channels=config["channels"], return_tensor=False,
+        )  # [C, S]
+        if pre.shape[-1] > config["max_samples"]:
+            raise ValueError(
+                f"Audio too long: {pre.shape[-1]} samples > {config['max_samples']} max samples"
+            )
+        q = as_int16_exact(pre)
+        return (pre if q is None else q), original_samples // config["hop_length"]
+
+    def _embed_encodec(self, audio_list, sr, strict, sink=None):
+        """JAX pipeline.py:876-933: every chunk padded to 10 s, frames past a
+        file's count masked (device stats) or trimmed (host)."""
+        max_samples = fe.ENCODEC_CONFIGS[self.cfg.sample_rate]["max_samples"]
+        prepped: List[Optional[Tuple[np.ndarray, int]]] = []
+        for audio in audio_list:
+            try:
+                prepped.append(self._encodec_prep(audio, sr))
+            except Exception as e:
+                if strict:
+                    raise
+                self._log_skip(e)
+                prepped.append(None)
+
+        idxs = [i for i, p in enumerate(prepped) if p is not None]
+        per_file: List[Optional[np.ndarray]] = [None] * len(audio_list)
+        pending = []
+        for c0 in range(0, len(idxs), self.file_batch):
+            chunk_idx = idxs[c0 : c0 + self.file_batch]
+            b = bucket_batch(len(chunk_idx), self.file_batch)
+            wave = self._to_device(_pack_wave([prepped[i][0] for i in chunk_idx], b, max_samples))
+            frames = np.zeros((b,), np.int64)  # padding rows: all masked
+            for row, i in enumerate(chunk_idx):
+                frames[row] = prepped[i][1]
+                per_file[i] = prepped[i][1]
+            if isinstance(sink, StatsSink):
+                sink.state = _fused_encodec_stats_step(
+                    self.model, wave, self._to_device(frames), sink.state
+                )
+            else:
+                pending.append((chunk_idx, self.model(wave)))  # [b, T, 128]
+            if self.verbose:
+                print(f"[FAD-TORCH] embedded {c0 + len(chunk_idx)}/{len(idxs)} files")
+        # Copy back after all launches, so device work overlaps host packing.
+        for chunk_idx, emb_dev in pending:
+            emb = emb_dev.cpu().numpy()
+            for row, i in enumerate(chunk_idx):
+                per_file[i] = emb[row, : prepped[i][1]]
+        return per_file
 
     def _log_skip(self, e: Exception) -> None:
         if self.verbose:

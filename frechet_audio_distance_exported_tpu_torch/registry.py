@@ -1,6 +1,6 @@
 """Model registry: names, sample rates, embedding dims, weight bundles.
 
-Copied from frechet_audio_distance_exported_tpu/registry.py (L15-24, L39-48,
+Copied from frechet_audio_distance_exported_tpu/registry.py (L15-48,
 L91-138) so the port never imports the JAX package. The download URL tables
 stay behind (downloads are not ported); the PANN frontend geometry lives in
 ops/frontends.PANN_CONFIGS.
@@ -20,6 +20,19 @@ VALID_MODELS = {
     "encodec-24k": {"sample_rate": 24000, "embedding_dim": 128, "channels": 1},
     "encodec-48k": {"sample_rate": 48000, "embedding_dim": 128, "channels": 2},
     "clap": {"sample_rate": 48000, "embedding_dim": 512},
+}
+
+# Map PANN model names to their sample rates (JAX registry.py:26-31).
+PANN_SAMPLE_RATES = {
+    "pann-8k": 8000,
+    "pann-16k": 16000,
+    "pann-32k": 32000,
+}
+
+# Map Encodec model names to their sample rates (JAX registry.py:33-37).
+ENCODEC_SAMPLE_RATES = {
+    "encodec-24k": 24000,
+    "encodec-48k": 48000,
 }
 
 # Weight bundle file names: the same .npz bundles the JAX package loads.
@@ -76,8 +89,10 @@ def get_model_config(model_name: str) -> ModelConfig:
     )
 
 
-# The model names this package runs so far; the others wait in ROADMAP.md Queue 1.
-PORTED_MODELS = ("vggish", "pann-8k", "pann-16k", "pann-32k", "clap")
+# The model names this package runs: all seven of VALID_MODELS.
+PORTED_MODELS = (
+    "vggish", "pann-8k", "pann-16k", "pann-32k", "encodec-24k", "encodec-48k", "clap",
+)
 
 
 def ported_model_config(model_name: str) -> ModelConfig:

@@ -7,12 +7,17 @@ the JAX pytrees
 - PANN:   {"bn0": {gamma, beta, mean, var}, "blocks": [{"conv1": {"w"}, "bn1",
            "conv2": {"w"}, "bn2"}] x 6, "fc1": {"w", "b"}};
 - CLAP:   {"bn0", "patch_embed": {"conv", "norm"}, "stages": [{"blocks": [...],
-           "downsample"}] x 4, "norm", "projection"} (JAX models/clap.py:428-490).
+           "downsample"}] x 4, "norm", "projection"} (JAX models/clap.py:428-490);
+- Encodec: {"conv_in", "stages": [{"res": {"conv1", "conv2", "shortcut"},
+           "down"}] x 4, "lstm": {"l0", "l1"}, "conv_out"}, each conv {"w", "b"}
+           and, at 48 kHz, "gn": {gamma, beta} (JAX models/encodec.py:276-311).
 Layouts are converted once, here. VGGish and PANN: convolution HWIO -> OIHW,
 linear [in, out] -> [out, in], BatchNorm (gamma, beta, mean, var) ->
 (weight, bias, running_mean, running_var). CLAP keeps the JAX tree: its
 state_dict keys are the flat keys with "." for "/", and only the patch-embed
-convolution turns HWIO -> OIHW.
+convolution turns HWIO -> OIHW. Encodec: convolution [k, in, out] ->
+[out, in, k], GroupNorm (gamma, beta) -> (weight, bias), LSTM [in, 4H] ->
+nn.LSTM's [4H, in] (the gate order i, f, g, o is the same).
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ import numpy as np
 import torch
 
 from .. import registry
+from ..models import encodec
 from ..models.clap import CLAP
 from ..models.pann import BLOCK_CHANNELS
 from ..models.vggish import CONV_CFG, FC_DIMS
@@ -86,25 +92,52 @@ def _clap_state(tree: Mapping) -> Dict[str, torch.Tensor]:
     return state
 
 
+def _encodec_state(tree: Mapping) -> Dict[str, torch.Tensor]:
+    state = {}
+
+    def sconv(prefix, p):
+        state[f"{prefix}.conv.weight"] = _f32(np.asarray(p["w"]).transpose(2, 1, 0))
+        state[f"{prefix}.conv.bias"] = _f32(p["b"])
+        if "gn" in p:
+            state[f"{prefix}.gn.weight"] = _f32(p["gn"]["gamma"])
+            state[f"{prefix}.gn.bias"] = _f32(p["gn"]["beta"])
+
+    sconv("conv_in", tree["conv_in"])
+    for i, stage in enumerate(tree["stages"]):
+        for name in ("conv1", "conv2", "shortcut"):
+            sconv(f"stages.{i}.res.{name}", stage["res"][name])
+        sconv(f"stages.{i}.down", stage["down"])
+    for i in range(encodec.LSTM_LAYERS):
+        p = tree["lstm"][f"l{i}"]
+        state[f"lstm.weight_ih_l{i}"] = _f32(np.asarray(p["w_ih"]).T)
+        state[f"lstm.weight_hh_l{i}"] = _f32(np.asarray(p["w_hh"]).T)
+        state[f"lstm.bias_ih_l{i}"] = _f32(p["b_ih"])
+        state[f"lstm.bias_hh_l{i}"] = _f32(p["b_hh"])
+    sconv("conv_out", tree["conv_out"])
+    return state
+
+
 def family_of_tree(tree: Mapping) -> str:
-    """'vggish', 'pann' or 'clap', from the pytree's top-level keys."""
+    """'vggish', 'pann', 'encodec' or 'clap', from the pytree's top-level keys."""
     if "features" in tree and "embeddings" in tree:
         return "vggish"
+    # Before CLAP's rule: both trees have "stages".
+    if {"conv_in", "stages", "lstm", "conv_out"} <= set(tree):
+        return "encodec"
     if "patch_embed" in tree and "stages" in tree and "projection" in tree:
         return "clap"
     if "blocks" in tree and "bn0" in tree:
         return "pann"
-    raise ValueError(f"not a VGGish, PANN or CLAP parameter tree (keys {sorted(tree)})")
+    raise ValueError(f"not a VGGish, PANN, Encodec or CLAP parameter tree (keys {sorted(tree)})")
 
 
 def params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
-    """JAX VGGish, PANN or CLAP pytree of arrays -> the module's state_dict (float32, CPU)."""
-    family = family_of_tree(tree)
-    if family == "vggish":
-        return _vggish_state(tree)
-    if family == "clap":
-        return _clap_state(tree)
-    return _pann_state(tree)
+    """JAX VGGish, PANN, Encodec or CLAP pytree of arrays -> the module's
+    state_dict (float32, CPU)."""
+    return {
+        "vggish": _vggish_state, "pann": _pann_state, "encodec": _encodec_state,
+        "clap": _clap_state,
+    }[family_of_tree(tree)](tree)
 
 
 def _unflatten(flat: Mapping[str, np.ndarray]):
@@ -130,7 +163,7 @@ def _unflatten(flat: Mapping[str, np.ndarray]):
 
 
 def load_weights(path: str, family: str = None) -> Dict[str, torch.Tensor]:
-    """A VGGish, PANN or CLAP .npz bundle -> state_dict. With ``family`` given, a
+    """A VGGish, PANN, Encodec or CLAP .npz bundle -> state_dict. With ``family`` given, a
     bundle of another family raises ValueError."""
     with np.load(path) as data:
         tree = _unflatten({k: data[k] for k in data.files})
@@ -160,10 +193,47 @@ def _clap_random(gen: torch.Generator) -> Dict[str, torch.Tensor]:
     return state
 
 
+def _encodec_random(model_name: str, uniform) -> Dict[str, torch.Tensor]:
+    """As the JAX initializer (models/encodec.py:276-311, common.py:175):
+    convolutions uniform(±1/sqrt(k * in)), the LSTM uniform(±1/sqrt(512)),
+    GroupNorm the identity. uniform(shape, fan_in) draws the values."""
+    with torch.device("meta"):
+        module = encodec.encodec_for_rate(registry.get_model_config(model_name).sample_rate)
+    state = {}
+    for name, mod in module.named_modules():
+        if isinstance(mod, torch.nn.Conv1d):
+            fan_in = mod.in_channels * mod.kernel_size[0]
+            state[f"{name}.weight"] = uniform(tuple(mod.weight.shape), fan_in)
+            state[f"{name}.bias"] = uniform(tuple(mod.bias.shape), fan_in)
+        elif isinstance(mod, torch.nn.GroupNorm):
+            state[f"{name}.weight"] = torch.ones(mod.num_channels)
+            state[f"{name}.bias"] = torch.zeros(mod.num_channels)
+        elif isinstance(mod, torch.nn.LSTM):
+            for key, value in mod.named_parameters():
+                state[f"{name}.{key}"] = uniform(tuple(value.shape), mod.hidden_size)
+    return state
+
+
+def check_encodec_bundle(state: Mapping[str, torch.Tensor], model_name: str, path: str) -> None:
+    """Raise ValueError, naming the file, where an Encodec bundle is of the
+    other rate: 48 kHz has GroupNorm leaves and 2 input channels, 24 kHz
+    neither."""
+    want = registry.VALID_MODELS[model_name]["channels"]
+    channels = state["conv_in.conv.weight"].shape[1]
+    group_norm = "conv_in.gn.weight" in state
+    if channels != want or group_norm != (want == 2):
+        raise ValueError(
+            f"{path} holds Encodec weights for {channels} input channel(s) "
+            f"{'with' if group_norm else 'without'} GroupNorm, not {model_name}'s "
+            f"({want} channel(s), {'with' if want == 2 else 'without'} GroupNorm)"
+        )
+
+
 def init_random_params(model_name: str, seed: int = 0) -> Dict[str, torch.Tensor]:
-    """Weights from an explicit generator; not the JAX package's bits. VGGish
-    and PANN: torch-default-like uniform(±1/sqrt(fan_in)), BatchNorm as the
-    identity like the JAX initializer (models/common.py:194). CLAP: as
+    """Weights from an explicit generator; not the JAX package's bits. VGGish,
+    PANN and Encodec: torch-default-like uniform(±1/sqrt(fan_in)), BatchNorm
+    and GroupNorm as the identity like the JAX initializer
+    (models/common.py:194); Encodec's LSTM as _encodec_random. CLAP: as
     _clap_random."""
     family = registry.ported_model_config(model_name).family
     gen = torch.Generator().manual_seed(seed)
@@ -173,6 +243,9 @@ def init_random_params(model_name: str, seed: int = 0) -> Dict[str, torch.Tensor
     def uniform(shape, fan_in):
         bound = float(np.sqrt(1.0 / fan_in))
         return (torch.rand(shape, generator=gen) * 2.0 - 1.0) * bound
+
+    if family == "encodec":
+        return _encodec_random(model_name, uniform)
 
     def identity_bn(prefix, dim):
         ones, zeros = np.ones(dim, np.float32), np.zeros(dim, np.float32)
@@ -218,7 +291,7 @@ def get_params(model_name: str, ckpt_dir: str, weights: str = "auto", seed: int 
             f"{ckpt_dir}, or pass weights='random' for testing."
         )
     try:
-        return load_weights(bundle_path, cfg.family)
+        state = load_weights(bundle_path, cfg.family)
     except Exception as e:
         # A corrupt bundle must not fail with a cryptic np.load error: name
         # the file and the fix.
@@ -226,3 +299,6 @@ def get_params(model_name: str, ckpt_dir: str, weights: str = "auto", seed: int 
             f"Weight bundle {bundle_path} exists but failed to load "
             f"({type(e).__name__}: {e}). Delete it and convert it again."
         ) from e
+    if cfg.family == "encodec":
+        check_encodec_bundle(state, model_name, bundle_path)
+    return state

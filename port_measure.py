@@ -1,23 +1,27 @@
 """On-card measurements of the PyTorch/CUDA port's fused embed+stats path.
 
-    python3 port_measure.py [--models pann-16k,vggish,clap] [--clips 256]
-                            [--batches 16,32,64,128] [--out-dir measure_out]
+    python3 port_measure.py [--models pann-16k,vggish,clap,encodec-24k,encodec-48k]
+                            [--clips 256] [--batches 16,32,64,128]
+                            [--out-dir measure_out]
 
 Needs one CUDA card; imports nothing of JAX. For each model, at full width
 with random weights drawn from seed 0, on --clips clips of 10 s of noise on
-the PCM16 grid at the model's rate (so chunks travel on the int16 wire), it
-measures pipeline.accumulate_stats over the whole list, the path that
+the PCM16 grid at the model's rate (so chunks travel on the int16 wire;
+stereo, two different channels, for encodec-48k), it measures
+pipeline.accumulate_stats over the whole list, the path that
 score(..., device_stats=True) runs:
 - sweep: audio-min/s and peak device memory for each file_batch, taken in
-  the order given and then in reverse, each after one warm-up pass;
+  the order given and then in reverse, each after one warm-up pass (a
+  file_batch that runs out of device memory is recorded as such);
 - profile: one pass at the CUDA default file_batch under torch.profiler:
   the device-busy share (the union of device kernel and copy intervals over
   the pass's wall), device time per kernel name, and the four kernels'
   launch counts over the pass;
-- split (PANN and CLAP): the same pass's host preparation (PANN: reflect
-  pad, as_int16_exact; CLAP: the pipeline's _clap_prep, which adds the
-  10 s pad and the int16 round trip; both then _pack_wave), host-to-device
-  copies and device steps on chunks already on the card, each timed alone;
+- split: the same pass's host preparation (PANN: reflect pad,
+  as_int16_exact; CLAP: the pipeline's _clap_prep, which adds the 10 s pad
+  and the int16 round trip; Encodec: the pipeline's _encodec_prep; all then
+  _pack_wave), host-to-device copies and device steps on chunks already on
+  the card, each timed alone (VGGish has no split);
 - cprofile: one pass under cProfile, the host functions with most own time.
 It also times the kernels' build: ops/_build.build() (one nvcc per source,
 in parallel, then a link) against one nvcc call for all sources.
@@ -31,6 +35,7 @@ from __future__ import annotations
 import argparse
 import cProfile
 import json
+import os
 import pstats
 import subprocess
 import sys
@@ -56,14 +61,17 @@ def build_times(_build) -> dict:
     each into an empty temporary directory."""
     sources = sorted(str(p) for p in _build.CSRC_DIR.glob("*.cu"))
     with tempfile.TemporaryDirectory() as tmp:
-        saved = _build.BUILD_DIR
-        _build.BUILD_DIR = Path(tmp) / "parallel"
+        saved = os.environ.get(_build.BUILD_DIR_ENV)
+        os.environ[_build.BUILD_DIR_ENV] = str(Path(tmp) / "parallel")
         try:
             t0 = time.perf_counter()
             _build.build()
             parallel = time.perf_counter() - t0
         finally:
-            _build.BUILD_DIR = saved
+            if saved is None:
+                del os.environ[_build.BUILD_DIR_ENV]
+            else:
+                os.environ[_build.BUILD_DIR_ENV] = saved
         cmd = [_build.find_nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", f"{tmp}/one.so", *sources]
         t0 = time.perf_counter()
         subprocess.run(cmd, check=True, capture_output=True)
@@ -118,10 +126,36 @@ def host_profile(run, top: int = 15) -> list:
     ]
 
 
-def mel_split(torch, np, pipeline_mod, pipe, clips, prep, target_sr, full_scale) -> dict:
+def timed_split(torch, pipe, prepare, step) -> dict:
     """Host preparation, host-to-device copies and device steps of one
-    accumulate_stats pass over uniform clips at the model's rate, each timed
-    alone. It follows EmbeddingPipeline._embed_mel_cnn for clips that share
+    accumulate_stats pass, each timed alone. prepare() -> the pass's chunks
+    as tuples (numpy arrays go to the card, other items stay as they are);
+    step(state, *chunk on the card) -> state."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    packed = prepare()
+    host_s = time.perf_counter() - t0
+    on_card = []
+    copy_s = synced_seconds(torch, lambda: on_card.extend(
+        tuple(pipe._to_device(a) if isinstance(a, np.ndarray) else a for a in chunk)
+        for chunk in packed
+    ))
+
+    def steps():
+        state = None
+        for chunk in on_card:
+            state = step(state, *chunk)
+
+    with torch.inference_mode():
+        steps()  # warm-up
+        device_s = synced_seconds(torch, steps)
+    return {"host_prep_ms": host_s * 1e3, "copy_ms": copy_s * 1e3, "device_ms": device_s * 1e3,
+            "chunks": len(packed), "wire": str(packed[0][0].dtype)}
+
+
+def mel_split(torch, np, pipeline_mod, pipe, clips, prep, target_sr, full_scale) -> dict:
+    """timed_split of EmbeddingPipeline._embed_mel_cnn for clips that share
     one program shape; prep(clip) -> (wave row, frame count, buffer length,
     frames of the program)."""
     _, _, length, num_frames = prep(clips[0])
@@ -138,26 +172,35 @@ def mel_split(torch, np, pipeline_mod, pipe, clips, prep, target_sr, full_scale)
             packed.append((wave, n_valid, len(items)))
         return packed
 
-    t0 = time.perf_counter()
-    packed = prepare()
-    host_s = time.perf_counter() - t0
-    on_card = []
-    copy_s = synced_seconds(torch, lambda: on_card.extend(
-        (pipe._to_device(w), pipe._to_device(v), n) for w, v, n in packed
-    ))
+    def step(state, wave, n_valid, n_live):
+        return pipeline_mod._fused_mel_cnn_stats_step(
+            pipe.model, wave, n_valid, n_live, state, target_sr, num_frames, full_scale
+        )
 
-    def steps():
-        state = None
-        for wave, n_valid, n_live in on_card:
-            state = pipeline_mod._fused_mel_cnn_stats_step(
-                pipe.model, wave, n_valid, n_live, state, target_sr, num_frames, full_scale
-            )
+    return timed_split(torch, pipe, prepare, step)
 
-    with torch.inference_mode():
-        steps()  # warm-up
-        device_s = synced_seconds(torch, steps)
-    return {"host_prep_ms": host_s * 1e3, "copy_ms": copy_s * 1e3, "device_ms": device_s * 1e3,
-            "chunks": len(packed), "wire": str(packed[0][0].dtype)}
+
+def encodec_split(torch, np, pipeline_mod, fe, pipe, clips, sr) -> dict:
+    """timed_split of EmbeddingPipeline._embed_encodec: the pipeline's own
+    _encodec_prep, then chunks of file_batch padded to 10 s."""
+    max_samples = fe.ENCODEC_CONFIGS[sr]["max_samples"]
+    fb = pipe.file_batch
+
+    def prepare():
+        packed = []
+        for c0 in range(0, len(clips), fb):
+            items = [pipe._encodec_prep(data, sr) for data in clips[c0 : c0 + fb]]
+            b = pipeline_mod.bucket_batch(len(items), fb)
+            frames = np.zeros((b,), np.int64)
+            frames[: len(items)] = [count for _, count in items]
+            packed.append((pipeline_mod._pack_wave([row for row, _ in items], b, max_samples),
+                           frames))
+        return packed
+
+    def step(state, wave, frames):
+        return pipeline_mod._fused_encodec_stats_step(pipe.model, wave, frames, state)
+
+    return timed_split(torch, pipe, prepare, step)
 
 
 def pann_prep(pipeline_mod, fe, target_sr):
@@ -187,6 +230,7 @@ def clap_prep(pipeline_mod, fe, pipe):
 
 def measure_model(torch, np, port, model_name: str, n_clips: int, batches, tmp) -> dict:
     from frechet_audio_distance_exported_tpu_torch import pipeline as pipeline_mod
+    from frechet_audio_distance_exported_tpu_torch import registry
     from frechet_audio_distance_exported_tpu_torch.ops import frontends as fe
     from frechet_audio_distance_exported_tpu_torch.ops import launches
 
@@ -194,9 +238,11 @@ def measure_model(torch, np, port, model_name: str, n_clips: int, batches, tmp) 
         model_name=model_name, weights="random", seed=SEED, ckpt_dir=tmp, device="cuda"
     )
     sr = fad.sample_rate
+    channels = registry.VALID_MODELS[model_name].get("channels", 1)
+    shape = (int(sr * CLIP_SECONDS),) + ((channels,) if channels > 1 else ())
     rng = np.random.default_rng(SEED)
     clips = [
-        (np.round(rng.standard_normal(int(sr * CLIP_SECONDS)) * 0.1 * 32768.0).clip(-32768, 32767)
+        (np.round(rng.standard_normal(shape) * 0.1 * 32768.0).clip(-32768, 32767)
          / 32768.0).astype(np.float32)
         for _ in range(n_clips)
     ]
@@ -211,15 +257,26 @@ def measure_model(torch, np, port, model_name: str, n_clips: int, batches, tmp) 
 
     sweep = {fb: [] for fb in batches}
     for fb in list(batches) + list(reversed(batches)):
+        if sweep[fb] and sweep[fb][0].get("oom"):
+            continue
         run = pass_of(pipe_for(fb))
-        if not sweep[fb]:
-            run()  # warm-up: cuDNN's algorithm choice and the allocator's growth
+        torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        s = synced_seconds(torch, run)
+        try:
+            if not sweep[fb]:
+                run()  # warm-up: cuDNN's algorithm choice and the allocator's growth
+            s = synced_seconds(torch, run)
+        except torch.cuda.OutOfMemoryError:
+            sweep[fb].append({"oom": True, "peak_gib": torch.cuda.max_memory_allocated() / 2**30})
+            print(f"{model_name} file_batch {fb}: out of device memory")
+            continue
         sweep[fb].append({"s": s, "audio_min_per_s": audio_min / s,
-                          "peak_gib": torch.cuda.max_memory_allocated() / 2**30})
+                          "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                          "peak_reserved_gib": torch.cuda.max_memory_reserved() / 2**30})
         print(f"{model_name} file_batch {fb}: {audio_min / s:.2f} audio-min/s, "
-              f"peak {sweep[fb][-1]['peak_gib']:.3f} GiB")
+              f"peak {sweep[fb][-1]['peak_gib']:.3f} GiB "
+              f"(reserved {sweep[fb][-1]['peak_reserved_gib']:.3f})")
+    torch.cuda.empty_cache()
 
     default = pipe_for(None)
     run = pass_of(default)
@@ -234,12 +291,15 @@ def measure_model(torch, np, port, model_name: str, n_clips: int, batches, tmp) 
     for row in prof["kernels"][:12]:
         print(f"  {row['ms']:9.3f} ms  x{row['count']:<4d} {row['name'][:110]}")
     out = {"clips": n_clips, "clip_seconds": CLIP_SECONDS, "sweep": sweep, "profile": prof}
-    if family in ("pann", "clap"):
-        if family == "pann":
-            prep, full_scale = pann_prep(pipeline_mod, fe, sr), 32768.0
+    if family != "vggish":
+        if family == "encodec":
+            out["split"] = encodec_split(torch, np, pipeline_mod, fe, default, clips, sr)
         else:
-            prep, full_scale = clap_prep(pipeline_mod, fe, default), 32767.0
-        out["split"] = mel_split(torch, np, pipeline_mod, default, clips, prep, sr, full_scale)
+            if family == "pann":
+                prep, full_scale = pann_prep(pipeline_mod, fe, sr), 32768.0
+            else:
+                prep, full_scale = clap_prep(pipeline_mod, fe, default), 32767.0
+            out["split"] = mel_split(torch, np, pipeline_mod, default, clips, prep, sr, full_scale)
         out["split"]["whole_pass_ms"] = synced_seconds(torch, run) * 1e3
         print(f"{model_name} split: {out['split']}")
     out["cprofile"] = host_profile(run)

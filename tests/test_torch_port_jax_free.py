@@ -2,9 +2,10 @@
 
 The machine with the card has none of them, and score()'s -1 sentinel would
 turn a stray import on the scoring path into a silent wrong answer. This
-test scores a small corpus with the port (VGGish, pann-16k and CLAP) in a subprocess whose import
-system refuses those modules (and the JAX package itself), modelled on
-test_torch_free_runtime.py, which guards the JAX package the other way.
+test scores a small corpus with the port (VGGish, pann-16k, encodec-24k and
+CLAP) in a subprocess whose import system refuses those modules (and the JAX
+package itself), modelled on test_torch_free_runtime.py, which guards the
+JAX package the other way.
 """
 
 import subprocess
@@ -53,7 +54,7 @@ _CHILD = textwrap.dedent(
             write_wav(os.path.join(d, f"{{i}}.wav"), np.sin(2 * np.pi * freq * t) * scale, sr)
 
     scores = []
-    for model in ("vggish", "pann-16k", "clap"):
+    for model in ("vggish", "pann-16k", "encodec-24k", "clap"):
         fad = FrechetAudioDistance(model_name=model, weights="random", ckpt_dir=ck, device="cpu")
         scores += [fad.score(bg, ev), fad.score(bg, ev, device_stats=True)]
     for score in scores:

@@ -20,6 +20,7 @@ from frechet_audio_distance_exported_tpu.models.vggish import (  # noqa: E402
 )
 from frechet_audio_distance_exported_tpu.utils.weights import save_weights  # noqa: E402
 from frechet_audio_distance_exported_tpu_torch.models.vggish import VGGish  # noqa: E402
+from frechet_audio_distance_exported_tpu_torch import registry  # noqa: E402
 from frechet_audio_distance_exported_tpu_torch.utils import weights  # noqa: E402
 
 
@@ -90,5 +91,7 @@ def test_get_params_modes(jax_params, tmp_path):
     assert torch.equal(state["features.0.bias"], torch.tensor(jax_params["features"][0]["b"]))
     with pytest.raises(ValueError, match="weights"):
         weights.get_params("vggish", str(tmp_path), weights="download")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        weights.get_params("encodec-24k", str(tmp_path), weights="random")
+    # Every valid name is ported: random weights resolve for each of them.
+    assert set(registry.VALID_MODELS) == set(registry.PORTED_MODELS)
+    for name in registry.VALID_MODELS:
+        assert weights.get_params(name, str(tmp_path), weights="random")

@@ -22,6 +22,7 @@ from frechet_audio_distance_exported_tpu.utils.weights import (  # noqa: E402
     save_weights,
 )
 from frechet_audio_distance_exported_tpu_torch import FrechetAudioDistance  # noqa: E402
+from frechet_audio_distance_exported_tpu_torch import registry  # noqa: E402
 from frechet_audio_distance_exported_tpu_torch.ops import launches  # noqa: E402
 from frechet_audio_distance_exported_tpu_torch.utils import audio_io  # noqa: E402
 
@@ -135,8 +136,11 @@ def test_constructor_errors(corpora, monkeypatch):
     ck = str(corpora / "ck")
     with pytest.raises(ValueError, match="Unknown model"):
         FrechetAudioDistance(model_name="vggish2", ckpt_dir=ck, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        FrechetAudioDistance(model_name="encodec-24k", ckpt_dir=ck, device="cpu")
+    # Every valid name is ported and constructs on the CPU.
+    assert set(registry.VALID_MODELS) == set(registry.PORTED_MODELS)
+    for name in registry.VALID_MODELS:
+        fad = FrechetAudioDistance(model_name=name, weights="random", ckpt_dir=ck, device="cpu")
+        assert fad.sample_rate == registry.VALID_MODELS[name]["sample_rate"]
     with pytest.raises(ValueError, match="sample_rate"):
         FrechetAudioDistance(model_name="vggish", sample_rate=8000, ckpt_dir=ck, device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
