@@ -30,6 +30,21 @@ FrechetAudioDistance(weights="random", device="cuda"):
 The CLAP pair, the pann-32k pair, a VGGish pair (8 clips a side) and the
 Encodec pairs are also scored on the CPU plain path: the card's FAD must
 agree within 1e-3, absolute and relative.
+Last, the mesh (parallel/). The machine has one card, so NCCL between cards
+is not exercised; in its place:
+(a) a one-rank NCCL group in this process runs make_sharded_score_step on
+    full-width VGGish x300 over 64 + 61 clips of 10 s (held to the float64
+    host epilogue of the same rows within 1e-3 relative; it must launch the
+    VGGish kernel), and times frechet_distance_torch on the card (eigh and
+    Newton-Schulz) beside the float64 host epilogue at d = 128, 512, 2048;
+(b) two gloo ranks on the one card, started as two processes of this script
+    (--mesh-rank) on one empty kernel build directory, score the VGGish and
+    CLAP corpora with FrechetAudioDistance(mesh=...), host path and
+    device_stats: both ranks must give the same score, within 1e-3 relative
+    of the single-process card score, and each rank must launch its kernels;
+(c) the CLI under torchrun with one process (--mesh --device-stats --json)
+    on the VGGish pair must give the single-process device_stats score
+    within 1e-6 relative.
 Each path runs with all four launch counts set to 0 just before it and read
 just after, so the counts show which kernels it went through: VGGish and
 PANN launch only their own log-mel kernel; CLAP launches the PANN log-mel
@@ -39,6 +54,7 @@ window_attention_fused 2 times; Encodec launches none of the four. The
 pann-16k, clap) and the PANN kernel's count on every path that runs it
 under "launches_by_path".
 Any failure raises and the exit code is non-zero. It imports nothing of JAX.
+Its processes all end before it does.
 
 The last line of standard output is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}};
@@ -93,6 +109,11 @@ ENCODEC_SMALL_CLIPS = 4  # per side, for the CPU plain path's score
 ENCODEC_MASKED_SECONDS = 4.0  # padded to 10 s; frames past 4 s are masked
 ENCODEC_LONG_SECONDS = 12.0  # past Encodec's 10 s: the batch skips it
 LSTM_STEPS = (750, 1500)  # the LSTM's steps on a 10 s clip at 24 and 48 kHz
+MESH_RTOL = 1e-3  # mesh scores vs the single-process card scores; the score step vs float64
+CLI_RTOL = 1e-6  # the one-rank CLI's device_stats score vs the single-process one
+VGGISH_SCALE = 300.0  # random-weight VGGish rows are about 1e-3: x300 gives an O(1) FAD
+STEP_FILES = 64  # files a side in the sharded score step, 10 s each
+EPILOGUE_DIMS = (128, 512, 2048)  # VGGish / Encodec, CLAP, PANN widths
 
 
 def bound(flops: float, nbytes: float, flops_per_s: float = F32_FLOPS):
@@ -598,8 +619,194 @@ def timed_warmup(torch, fad, label: str, batch: int) -> None:
           f"peak {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
 
 
+def free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def score_step_phase(torch, np, launches, stats_ops, embed, fe, mesh, model) -> dict:
+    """(a) make_sharded_score_step on full-width VGGish x300 over 10 s clips
+    (STEP_FILES a side, three ev files masked), against the float64 host
+    epilogue of the same rows taken on the card. The step's launch counts
+    are read just after it."""
+    dev = mesh.device
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    samples = int(16000 * CLIP_SECONDS)
+    patches = fe.vggish_num_patches(samples)
+    t = torch.arange(samples, device=dev) / 16000.0
+    freqs = 220.0 * 2 ** (torch.arange(STEP_FILES, device=dev)[:, None] / 12.0)
+    rows_bg = 0.5 * torch.sin(2 * math.pi * freqs * t)
+    rows_ev = torch.randn((STEP_FILES, samples), generator=gen, device=dev) * 0.1
+    mask_bg = torch.ones(STEP_FILES, device=dev)
+    mask_ev = torch.ones(STEP_FILES, device=dev)
+    mask_ev[-3:] = 0.0
+
+    def model_fn(wave):
+        mel = fe.vggish_patches_batch(wave, patches)
+        emb = model(mel.reshape(-1, fe.VGGISH_PATCH_FRAMES, fe.VGGISH_MEL_BINS))
+        return emb.reshape(wave.shape[0], patches, -1) * VGGISH_SCALE
+
+    step = embed.make_sharded_score_step(mesh, model_fn)
+    launches.zero()
+    t0 = time.perf_counter()
+    fused = float(step(rows_bg, mask_bg, rows_ev, mask_ev))
+    seconds = time.perf_counter() - t0
+    counts = launches.read()
+    with torch.inference_mode():
+        e1 = model_fn(rows_bg).reshape(-1, 128).double().cpu().numpy()
+        e2 = model_fn(rows_ev[:-3]).reshape(-1, 128).double().cpu().numpy()
+    host = stats_ops.frechet_distance_eigh_np(
+        e1.mean(0), np.cov(e1, rowvar=False), e2.mean(0), np.cov(e2, rowvar=False))
+    rel = abs(fused - host) / abs(host)
+    print(f"mesh (a) sharded score step, a group of {mesh.size} on {dev}: VGGish x"
+          f"{VGGISH_SCALE:g} on {STEP_FILES} + {STEP_FILES - 3} clips of {CLIP_SECONDS:g} s "
+          f"({len(e1)} + {len(e2)} rows): FAD {fused!r} on the card vs float64 host {host!r}, "
+          f"relative {rel:.3e}; {seconds:.3f} s; launches {counts}")
+    return {"fad": fused, "host": host, "rel": rel, "seconds": seconds, "launches": counts}
+
+
+def epilogue_phase(torch, np, stats_ops, embed, mesh) -> dict:
+    """frechet_distance_torch on the card (eigh and Newton-Schulz, float32)
+    beside the float64 host epilogue (frechet_distance_eigh_np, the default
+    of score()) at each width of EPILOGUE_DIMS, on covariances of 4d
+    samples (the second 1.5x wider and shifted by 0.5: an O(d) FAD); and
+    the time of merge_stats, the merge of a directory's streamed
+    statistics, on the mesh's group."""
+    dev = mesh.device
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    rows = {}
+    for d in EPILOGUE_DIMS:
+        x1 = torch.randn((4 * d, d), generator=gen, device=dev, dtype=torch.float64)
+        x2 = torch.randn((4 * d, d), generator=gen, device=dev, dtype=torch.float64) * 1.5 + 0.5
+        f64 = [a.cpu().numpy() for a in (x1.mean(0), torch.cov(x1.T), x2.mean(0), torch.cov(x2.T))]
+        f32 = [torch.from_numpy(a.astype(np.float32)).to(dev) for a in f64]
+        t0 = time.perf_counter()
+        host = stats_ops.frechet_distance_eigh_np(*f64)
+        host_ms = (time.perf_counter() - t0) * 1e3
+        state = stats_ops.init_update_stats(x1.float(), torch.ones(4 * d, device=dev))
+        row = {"host_ms": host_ms, "host": host,
+               "merge_ms": cuda_ms(torch, lambda: embed.merge_stats(mesh, state, d), 10, 2)}
+        for method in stats_ops.FRECHET_METHODS:
+            value = float(stats_ops.frechet_distance_torch(*f32, method=method))
+            ms = cuda_ms(torch, lambda: stats_ops.frechet_distance_torch(*f32, method=method),
+                         iters=5, warmup=1)
+            row[method] = {"ms": ms, "rel": abs(value - host) / abs(host)}
+        # The eigh route in float64 on the card, and the float32 eigenvalues
+        # of Σ₂ on the card against numpy's float64 ones: where the float32
+        # route's error comes from.
+        d64 = [torch.from_numpy(a).to(dev) for a in f64]
+        value = float(stats_ops.frechet_distance_torch(*d64))
+        row["eigh_float64"] = {
+            "ms": cuda_ms(torch, lambda: stats_ops.frechet_distance_torch(*d64), iters=5, warmup=1),
+            "rel": abs(value - host) / abs(host)}
+        w64 = np.linalg.eigvalsh(f64[3])
+        w32 = torch.linalg.eigvalsh(f32[3]).double().cpu().numpy()
+        row["eigvalsh_float32_err"] = float(np.abs(w32 - w64).max() / np.abs(w64).max())
+        rows[d] = row
+        print(f"mesh (a) epilogue d={d}: card eigh {row['eigh']['ms']:.3f} ms (relative "
+              f"{row['eigh']['rel']:.3e}), card Newton-Schulz {row['newton_schulz']['ms']:.3f} ms "
+              f"(relative {row['newton_schulz']['rel']:.3e}), host float64 eigh {host_ms:.3f} ms "
+              f"(FAD {host:.6g}); merge_stats {row['merge_ms']:.3f} ms; card eigh in float64 "
+              f"{row['eigh_float64']['ms']:.3f} ms (relative {row['eigh_float64']['rel']:.3e}); "
+              f"float32 eigvalsh of the second covariance: max error / max eigenvalue "
+              f"{row['eigvalsh_float32_err']:.3e} "
+              f"({torch.backends.cuda.preferred_linalg_library()})")
+    return rows
+
+
+def mesh_rank_main(argv) -> int:
+    """(b) one rank of the two-rank gloo group: FrechetAudioDistance(mesh=...)
+    on VGGish and CLAP, host path and device_stats, each model with every
+    launch count set to 0 just before it and read just after. Writes its
+    scores and counts as JSON."""
+    import torch
+
+    rank, port, cfg_path = int(argv[0]), int(argv[1]), argv[2]
+    sys.path.insert(0, str(ROOT))
+    from frechet_audio_distance_exported_tpu_torch import FrechetAudioDistance
+    from frechet_audio_distance_exported_tpu_torch.ops import launches
+    from frechet_audio_distance_exported_tpu_torch.parallel import mesh as mesh_mod
+
+    cfg = json.loads(Path(cfg_path).read_text())
+    dev = torch.device(cfg["device"])
+    mesh_mod.initialize_distributed(f"localhost:{port}", 2, rank, backend="gloo", device=dev,
+                                    timeout_s=600)
+    mesh = mesh_mod.data_mesh(device=dev)
+    out = {"rank": rank, "device": str(mesh.device)}
+    for model, (bg, ev) in cfg["pairs"].items():
+        fad = FrechetAudioDistance(model_name=model, weights="random", seed=SEED,
+                                   ckpt_dir=cfg["ck"], device=dev.type, mesh=mesh)
+        launches.zero()
+        t0 = time.perf_counter()
+        scores = {"bg_ev": fad.score(bg, ev),
+                  "bg_ev_device_stats": fad.score(bg, ev, device_stats=True)}
+        out[model] = {"scores": scores, "launches": launches.read(),
+                      "seconds": time.perf_counter() - t0}
+        del fad
+    Path(cfg["out"].format(rank=rank)).write_text(json.dumps(out))
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def two_rank_phase(tmp: Path, dev: str, pairs: dict) -> list:
+    """(b) starts mesh_rank_main twice, both ranks on one device and, at
+    first, on one empty kernel build directory (both build it at once).
+    Returns each rank's results."""
+    cfg = {"device": dev, "pairs": pairs, "ck": str(tmp / "ck"),
+           "out": str(tmp / "mesh_rank{rank}.json")}
+    (tmp / "mesh_cfg.json").write_text(json.dumps(cfg))
+    build_dir = tmp / "mesh_build"
+    build_dir.mkdir()
+    env = dict(os.environ, FAD_TPU_TORCH_BUILD_DIR=str(build_dir))
+    port = free_port()
+    t0 = time.perf_counter()
+    procs = [
+        subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--mesh-rank", str(rank),
+                          str(port), str(tmp / "mesh_cfg.json")], env=env, cwd=str(ROOT),
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for rank in (0, 1)
+    ]
+    try:
+        outs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for rank, (p, out) in enumerate(zip(procs, outs)):
+        tail = "\n".join(out.strip().splitlines()[-30:])
+        check(p.returncode == 0, f"mesh (b) rank {rank} exited {p.returncode}:\n{tail}")
+    built = sorted(f.name for f in build_dir.iterdir())
+    print(f"mesh (b) two gloo ranks on {dev}: {time.perf_counter() - t0:.1f} s with the kernel "
+          f"build from an empty directory (now {built})")
+    return [json.loads(Path(cfg["out"].format(rank=r)).read_text()) for r in (0, 1)]
+
+
+def cli_phase(tmp: Path, bg: str, ev: str, dev: str) -> float:
+    """(c) the CLI under torchrun with one process: --mesh --device-stats
+    --json on a VGGish pair; returns its score."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="4")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", "1",
+           "--master-port", str(free_port()), "-m", "frechet_audio_distance_exported_tpu_torch",
+           bg, ev, "--model", "vggish", "--weights", "random", "--ckpt-dir", str(tmp / "ck"),
+           "--device", dev, "--mesh", "--device-stats", "--json"]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, capture_output=True, text=True, timeout=600, cwd=str(ROOT), env=env)
+    check(r.returncode == 0, f"mesh (c) CLI exited {r.returncode}:\n{r.stdout[-3000:]}\n"
+                             f"{r.stderr[-3000:]}")
+    rec = json.loads(r.stdout.strip().splitlines()[-1])
+    print(f"mesh (c) CLI under torchrun, one rank: {rec} in {time.perf_counter() - t0:.1f} s")
+    return rec["fad"]
+
+
 def main() -> int:
     import torch
+    import torch.distributed as dist
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA card",
@@ -615,6 +822,9 @@ def main() -> int:
     from frechet_audio_distance_exported_tpu_torch.ops import _build, cuda_frontend, cuda_pann_frontend
     from frechet_audio_distance_exported_tpu_torch.ops import frontends as fe
     from frechet_audio_distance_exported_tpu_torch.ops import launches, window_attn
+    from frechet_audio_distance_exported_tpu_torch.ops import stats as stats_ops
+    from frechet_audio_distance_exported_tpu_torch.parallel import embed
+    from frechet_audio_distance_exported_tpu_torch.parallel import mesh as mesh_mod
     from frechet_audio_distance_exported_tpu_torch.pipeline import (
         DEFAULT_FILE_BATCH,
         ENCODEC_FILE_BATCH,
@@ -679,6 +889,7 @@ def main() -> int:
         check_only(counts, "fused_vggish_logmel", "vggish")
         vggish_launches = counts["fused_vggish_logmel"]
         check_pair_scores(scores, "vggish")
+        single_scores = {"vggish": scores}
         cpu_vggish = calculator("vggish", "cpu")
         card_vs_cpu(np, fad, cpu_vggish, clips16k(), 16000, (20, 128), "vggish")
         small = fad.score(bg_small, ev_small)
@@ -727,6 +938,7 @@ def main() -> int:
         clap_launches = counts
         pann_launches["clap"] = counts["fused_pann_logmel"]
         check_pair_scores(scores, "clap")
+        single_scores["clap"] = scores
         _, counts = run_path(torch, fad, [("bg_ev", (bg_small, ev_small), {})], launches,
                              "swin_block_fused", "clap 16 kHz")
         check_clap_counts(counts, "clap 16 kHz")
@@ -766,6 +978,65 @@ def main() -> int:
         check_none(counts, "encodec-48k 16 kHz")
         card_vs_cpu(np, fad, calculator("encodec-48k", "cpu", 1), clips16k(), 16000,
                     (2 * 48000 * int(CLIP_SECONDS) // 320, 128), "encodec-48k 16 kHz")
+        del fad
+
+        # 8. The mesh (parallel/), on this one card. NCCL between cards is
+        #    not exercised: the machine has one.
+        print("mesh: NCCL across two or more cards is not exercised here (the machine has "
+              f"{torch.cuda.device_count()} card); a one-rank NCCL group and two gloo ranks on "
+              "one card stand in")
+        #    (a) A one-rank NCCL group in this process: the sharded score step
+        #        and the on-device epilogue's times.
+        mesh_mod.initialize_distributed(f"localhost:{free_port()}", 1, 0, backend="nccl",
+                                        device="cuda:0")
+        try:
+            mesh = mesh_mod.data_mesh()
+            check(dist.get_backend() == "nccl" and (mesh.rank, mesh.size) == (0, 1),
+                  f"mesh (a): {mesh}")
+            step = score_step_phase(torch, np, launches, stats_ops, embed, fe, mesh,
+                                    calculator("vggish").model)
+            check(step["rel"] <= MESH_RTOL,
+                  f"mesh (a) score step vs float64 host: {step['rel']} > {MESH_RTOL}")
+            check_only(step["launches"], "fused_vggish_logmel", "mesh (a) score step")
+            epilogue = epilogue_phase(torch, np, stats_ops, embed, mesh)
+        finally:
+            dist.destroy_process_group()
+        torch.cuda.empty_cache()
+        #    (b) Two gloo ranks on this card, started as two processes, on
+        #        the VGGish and CLAP corpora: each rank's counts set to 0 just
+        #        before each model and read just after, in the rank.
+        ranks = two_rank_phase(tmp, "cuda:0", {"vggish": (bg, ev), "clap": (clap_bg, clap_ev)})
+        for model in ("vggish", "clap"):
+            for mode in ("bg_ev", "bg_ev_device_stats"):
+                s0, s1 = (r[model]["scores"][mode] for r in ranks)
+                ref = single_scores[model][mode]
+                rel = abs(s0 - ref) / abs(ref)
+                print(f"mesh (b) {model} {mode}: rank 0 {s0!r}, rank 1 {s1!r}; single process "
+                      f"{ref!r}, relative difference {rel:.3e}")
+                check(s0 == s1, f"mesh (b) {model} {mode}: the ranks disagree: {s0} vs {s1}")
+                check(s0 != -1 and rel <= MESH_RTOL,
+                      f"mesh (b) {model} {mode}: {s0} vs single process {ref}")
+            for r in ranks:
+                label = f"mesh (b) rank {r['rank']} {model}"
+                print(f"{label}: {r[model]['seconds']:.1f} s, launches {r[model]['launches']}")
+                if model == "vggish":
+                    check_only(r[model]["launches"], "fused_vggish_logmel", label)
+                else:
+                    check_clap_counts(r[model]["launches"], label)
+        #    (c) The CLI under torchrun, one process, on the VGGish pair.
+        cli = cli_phase(tmp, bg, ev, "cuda")
+        ref = single_scores["vggish"]["bg_ev_device_stats"]
+        rel = abs(cli - ref) / abs(ref)
+        print(f"mesh (c) CLI --mesh --device-stats {cli!r} vs single process {ref!r}: "
+              f"relative {rel:.3e}")
+        check(rel <= CLI_RTOL, f"mesh (c) CLI vs single process: {rel} > {CLI_RTOL}")
+        print(json.dumps({"mesh": {
+            "score_step": step, "epilogue": epilogue, "cli": {"fad": cli, "rel": rel},
+            "two_ranks": {m: {"scores": [r[m]["scores"] for r in ranks],
+                              "single": single_scores[m],
+                              "launches": [r[m]["launches"] for r in ranks]}
+                          for m in ("vggish", "clap")},
+        }}))
 
     print(json.dumps({"kernels": [
         {
@@ -834,4 +1105,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        sys.exit(mesh_rank_main(sys.argv[2:]))
     sys.exit(main())

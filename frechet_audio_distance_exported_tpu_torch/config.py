@@ -14,7 +14,16 @@ an FAD-delta measurement on the card.
 
 from __future__ import annotations
 
+import os
+
 import torch
+
+
+def exact_sqrtm() -> bool:
+    """FAD_TPU_EXACT_SQRTM=1 selects the reference's scipy sqrtm algorithm
+    bit-for-bit over the exact-but-faster Gram/eigh epilogues (copied from
+    frechet_audio_distance_exported_tpu/config.py:77-80)."""
+    return os.environ.get("FAD_TPU_EXACT_SQRTM", "") not in ("", "0")
 
 
 def set_exact_float32() -> None:

@@ -1,7 +1,8 @@
 """Fréchet Audio Distance on PyTorch and CUDA — public API.
 
 Counterpart of frechet_audio_distance_exported_tpu/fad.py: the same
-constructor kwargs (minus ``mesh``, plus ``device``), the same methods
+constructor kwargs (``mesh`` takes a parallel.mesh.DataMesh; plus
+``device``), the same methods
 (score / get_embeddings / _get_embedding_for_audio /
 calculate_embd_statistics / calculate_frechet_distance / _load_audio_files /
 warmup), the same -1 error sentinel and .npy embedding caches, for all
@@ -18,13 +19,14 @@ import numpy as np
 import torch
 
 from . import registry
-from .config import resolve_device, set_exact_float32
+from .config import exact_sqrtm, resolve_device, set_exact_float32
 from .models.clap import CLAP
 from .models.encodec import encodec_for_rate
 from .models.pann import PANN
 from .models.vggish import VGGish
 from .ops import stats as stats_ops
-from .pipeline import EmbeddingPipeline
+from .parallel.embed import merge_stats
+from .pipeline import EmbeddingPipeline, StatsSink
 from .utils import audio_io
 from .utils import weights as weight_store
 
@@ -42,6 +44,15 @@ def _save_embeddings(path: str, embds: np.ndarray) -> None:
     if parent:
         os.makedirs(parent, exist_ok=True)
     np.save(path, embds)
+
+
+def _concat_rows(per_file) -> np.ndarray:
+    """One matrix of every file's rows, in file order (files that failed are
+    None and add none); an empty array when there is none."""
+    embd_lst = [e for e in per_file if e is not None]
+    if not embd_lst:
+        return np.array([])
+    return np.concatenate(embd_lst, axis=0)
 
 
 class FrechetAudioDistance:
@@ -65,6 +76,7 @@ class FrechetAudioDistance:
         file_batch: Optional[int] = None,
         patch_chunk: int = 1024,
         device: str = "cuda",
+        mesh=None,
     ):
         """Initialize the FAD calculator.
 
@@ -86,6 +98,11 @@ class FrechetAudioDistance:
             seed: generator seed for weights='random'.
             file_batch / patch_chunk: batching knobs of the pipeline.
             device: 'cuda' (default; raises without CUDA) or 'cpu'.
+            mesh: a parallel.mesh.DataMesh (data_mesh()): this process is
+                one rank, runs on the mesh's device (``device`` must name
+                its type) and scores only its share of each directory; every
+                rank calls score() with the same arguments and gets the same
+                score. Only rank 0 prints progress and writes .npy caches.
         """
         model_config = registry.ported_model_config(model_name)
         expected_sr = model_config.sample_rate
@@ -106,6 +123,12 @@ class FrechetAudioDistance:
         self._file_batch = file_batch
         self._patch_chunk = patch_chunk
 
+        self._mesh = mesh
+        if mesh is not None:
+            if torch.device(device).type != mesh.device.type:
+                raise ValueError(f"device={device!r} but the mesh runs on {mesh.device}")
+            device = mesh.device
+            self.verbose = verbose and mesh.rank == 0
         self.device = resolve_device(device)
         set_exact_float32()
         if self.verbose:
@@ -143,6 +166,14 @@ class FrechetAudioDistance:
             patch_chunk=self._patch_chunk,
             verbose=self.verbose,
         )
+        if self._mesh is not None:
+            self.pipeline.set_mesh(self._mesh)
+
+    def _agreed(self, fn):
+        """fn(), and under a mesh every rank raises if any rank raised
+        (parallel.mesh.DataMesh.agree), so no rank waits in a collective that
+        another rank will never enter, and every rank returns the same."""
+        return fn() if self._mesh is None else self._mesh.agree(fn)
 
     # ------------------------------------------------------------------
     # Embeddings
@@ -152,11 +183,7 @@ class FrechetAudioDistance:
         """Embeddings for a list of audio arrays, concatenated over files
         (VGGish: one row per 0.96 s patch; Encodec: one row per 320 samples
         at the model's rate; PANN and CLAP: one row per file)."""
-        per_file = self.pipeline.embed_files(x, sr, strict=False)
-        embd_lst = [e for e in per_file if e is not None]
-        if not embd_lst:
-            return np.array([])
-        return np.concatenate(embd_lst, axis=0)
+        return _concat_rows(self.pipeline.embed_files(x, sr, strict=False))
 
     def _get_embedding_for_audio(self, audio: np.ndarray) -> np.ndarray:
         """Single-file hook; raises on error."""
@@ -175,7 +202,10 @@ class FrechetAudioDistance:
     def calculate_frechet_distance(self, mu1, sigma1, mu2, sigma2, eps: float = 1e-6) -> float:
         """Fréchet distance between two Gaussians, by the float64 symmetric
         eigh route (same math as the reference's scipy sqrtm, ~1e-7
-        relative; stats_ops.frechet_distance_np is the scipy algorithm)."""
+        relative). FAD_TPU_EXACT_SQRTM=1 runs the reference's scipy
+        algorithm instead (JAX fad.py:182-185)."""
+        if exact_sqrtm():
+            return stats_ops.frechet_distance_np(mu1, sigma1, mu2, sigma2, eps=eps)
         return stats_ops.frechet_distance_eigh_np(mu1, sigma1, mu2, sigma2, eps=eps)
 
     # ------------------------------------------------------------------
@@ -208,6 +238,10 @@ class FrechetAudioDistance:
         device_stats=True streams (N, Σx, Σxxᵀ) on the device; embeddings
         never reach the host. It cannot fill the .npy caches, so with a
         cache path it falls back to the host path.
+
+        Under a mesh every rank calls this with the same arguments. The
+        empty-directory -1 is decided on the global counts, and a failure on
+        any rank makes every rank return -1.
         """
         try:
             if device_stats and not background_embds_path and not eval_embds_path:
@@ -219,65 +253,89 @@ class FrechetAudioDistance:
                     "never materialize embeddings); falling back to the host-"
                     "stats path with .npy caching."
                 )
-            if background_embds_path and os.path.exists(background_embds_path):
-                if self.verbose:
-                    print(f"[FAD-TORCH] Loading embeddings from {background_embds_path}...")
-                embds_background = np.load(background_embds_path)
-            else:
-                audio_background = self._load_audio_files(background_dir, dtype=dtype)
-                embds_background = self.get_embeddings(audio_background, sr=self.sample_rate)
-                if background_embds_path:
-                    _save_embeddings(background_embds_path, embds_background)
-
-            if eval_embds_path and os.path.exists(eval_embds_path):
-                if self.verbose:
-                    print(f"[FAD-TORCH] Loading embeddings from {eval_embds_path}...")
-                embds_eval = np.load(eval_embds_path)
-            else:
-                audio_eval = self._load_audio_files(eval_dir, dtype=dtype)
-                embds_eval = self.get_embeddings(audio_eval, sr=self.sample_rate)
-                if eval_embds_path:
-                    _save_embeddings(eval_embds_path, embds_eval)
-
-            if len(embds_background) == 0:
-                print("[FAD-TORCH] Background set dir is empty, exiting...")
-                return -1
-            if len(embds_eval) == 0:
-                print("[FAD-TORCH] Eval set dir is empty, exiting...")
-                return -1
-
-            # Fewer rows than dims: the Gram-trick epilogue is exact and
-            # skips the d x d eigendecompositions. It bypasses the two hooks,
-            # so it stands down when a subclass overrides either of them.
-            d = embds_background.shape[1]
-            n_min = min(len(embds_background), len(embds_eval))
-            stock_hooks = (
-                type(self).calculate_embd_statistics
-                is FrechetAudioDistance.calculate_embd_statistics
-                and type(self).calculate_frechet_distance
-                is FrechetAudioDistance.calculate_frechet_distance
-            )
-            if 1 < n_min < d and stock_hooks:
-                return stats_ops.frechet_distance_lowrank_np(embds_background, embds_eval)
-
-            mu_background, sigma_background = self.calculate_embd_statistics(embds_background)
-            mu_eval, sigma_eval = self.calculate_embd_statistics(embds_eval)
-
-            return self.calculate_frechet_distance(
-                mu_background, sigma_background, mu_eval, sigma_eval
-            )
+            embds_background = self._dir_embeddings(background_dir, dtype, background_embds_path)
+            embds_eval = self._dir_embeddings(eval_dir, dtype, eval_embds_path)
+            return self._agreed(lambda: self._score_embeddings(embds_background, embds_eval))
         except Exception as e:
             print(f"[FAD-TORCH] An error occurred: {e}")
             return -1
 
-    def _stream_audio_chunks(self, dir: str, dtype: str, chunk_files: int):
-        """Decode a directory in chunks, one chunk ahead of the consumer, so
+    def _dir_embeddings(self, dir: str, dtype: str, cache_path: Optional[str]) -> np.ndarray:
+        """One directory's embedding matrix: read from cache_path where that
+        file exists, else computed, and written there when a path is given.
+
+        Under a mesh, rank 0 decides whether the cache exists (the broadcast
+        is where the other ranks wait before reading it) and alone writes it;
+        each rank decodes and embeds only its block of the directory, and the
+        per-file embeddings are gathered in file order."""
+        mesh = self._mesh
+        if mesh is None:
+            exists = bool(cache_path) and os.path.exists(cache_path)
+        else:
+            exists = bool(cache_path) and mesh.from_rank0(lambda: os.path.exists(cache_path))
+        if exists:
+            if self.verbose:
+                print(f"[FAD-TORCH] Loading embeddings from {cache_path}...")
+            return self._agreed(lambda: np.load(cache_path))
+        if mesh is None:
+            embds = self.get_embeddings(self._load_audio_files(dir, dtype=dtype), self.sample_rate)
+        else:
+            paths = mesh.from_rank0(lambda: self._dir_paths(dir))
+            mine = paths[mesh.share(len(paths))]
+            embds = _concat_rows(mesh.gather(lambda: self.pipeline.embed_local(
+                self._load_audio_paths(mine, dtype), self.sample_rate)))
+        if cache_path:
+
+            def save():
+                if mesh is None or mesh.rank == 0:
+                    _save_embeddings(cache_path, embds)
+
+            self._agreed(save)
+        return embds
+
+    def _score_embeddings(self, embds_background: np.ndarray, embds_eval: np.ndarray) -> float:
+        if len(embds_background) == 0:
+            print("[FAD-TORCH] Background set dir is empty, exiting...")
+            return -1
+        if len(embds_eval) == 0:
+            print("[FAD-TORCH] Eval set dir is empty, exiting...")
+            return -1
+
+        # Fewer rows than dims: the Gram-trick epilogue is exact and skips
+        # the d x d eigendecompositions. It bypasses the two hooks, so it
+        # stands down when a subclass overrides either of them, and under
+        # FAD_TPU_EXACT_SQRTM (JAX fad.py:272).
+        d = embds_background.shape[1]
+        n_min = min(len(embds_background), len(embds_eval))
+        stock_hooks = (
+            type(self).calculate_embd_statistics
+            is FrechetAudioDistance.calculate_embd_statistics
+            and type(self).calculate_frechet_distance
+            is FrechetAudioDistance.calculate_frechet_distance
+        )
+        if 1 < n_min < d and stock_hooks and not exact_sqrtm():
+            return stats_ops.frechet_distance_lowrank_np(embds_background, embds_eval)
+
+        mu_background, sigma_background = self.calculate_embd_statistics(embds_background)
+        mu_eval, sigma_eval = self.calculate_embd_statistics(embds_eval)
+
+        return self.calculate_frechet_distance(mu_background, sigma_background, mu_eval, sigma_eval)
+
+    def _dir_paths(self, dir: str) -> List[str]:
+        return [os.path.join(dir, f) for f in audio_io.list_audio_files(dir)]
+
+    def _load_audio_paths(self, paths: List[str], dtype: str) -> List[np.ndarray]:
+        return audio_io.load_audio_paths(
+            paths, self.sample_rate, self.channels, dtype=dtype,
+            num_workers=self.audio_load_worker, verbose=self.verbose,
+        )
+
+    def _stream_audio_chunks(self, paths: List[str], dtype: str, chunk_files: int):
+        """Decode files in chunks, one chunk ahead of the consumer, so
         decoding overlaps device work and host memory holds about two
         chunks of waveforms."""
         from multiprocessing.dummy import Pool as ThreadPool
 
-        files = audio_io.list_audio_files(dir)
-        paths = [os.path.join(dir, f) for f in files]
         pool = ThreadPool(self.audio_load_worker)
 
         def load(p):
@@ -296,15 +354,28 @@ class FrechetAudioDistance:
             pool.close()
             pool.join()
 
-    def _accumulate_dir(self, dir: str, dtype: str):
-        state = None
+    def _accumulate_paths(self, paths: List[str], dtype: str):
+        """This process's streamed statistics over the given files, chunk by
+        chunk; None when no file gave a row."""
+        sink = StatsSink()
         done = 0
-        for chunk in self._stream_audio_chunks(dir, dtype, 4 * self.pipeline.file_batch):
-            state = self.pipeline.accumulate_stats(chunk, self.sample_rate, state=state)
+        for chunk in self._stream_audio_chunks(paths, dtype, 4 * self.pipeline.file_batch):
+            self.pipeline.embed_local(chunk, self.sample_rate, sink=sink)
             done += len(chunk)
             if self.verbose:
-                print(f"[FAD-TORCH] accumulated {done} files from {dir}")
-        return state
+                print(f"[FAD-TORCH] accumulated {done} files of {len(paths)}")
+        return sink.state
+
+    def _accumulate_dir(self, dir: str, dtype: str):
+        """A directory's streamed statistics. Under a mesh each rank decodes
+        and accumulates only its block of the files, and the states are
+        merged once (parallel.embed.merge_stats)."""
+        mesh = self._mesh
+        if mesh is None:
+            return self._accumulate_paths(self._dir_paths(dir), dtype)
+        paths = mesh.from_rank0(lambda: self._dir_paths(dir))
+        state = mesh.agree(lambda: self._accumulate_paths(paths[mesh.share(len(paths))], dtype))
+        return merge_stats(mesh, state, self.pipeline.cfg.embedding_dim)
 
     def _score_device_stats(self, background_dir: str, eval_dir: str, dtype: str) -> float:
         """Streamed device statistics, then the float64 host epilogue through
@@ -317,9 +388,13 @@ class FrechetAudioDistance:
         if st_ev is None:
             print("[FAD-TORCH] Eval set dir is empty, exiting...")
             return -1
-        mu1, sigma1 = stats_ops.finalize_stats_np(st_bg)
-        mu2, sigma2 = stats_ops.finalize_stats_np(st_ev)
-        return self.calculate_frechet_distance(mu1, sigma1, mu2, sigma2)
+
+        def epilogue():
+            mu1, sigma1 = stats_ops.finalize_stats_np(st_bg)
+            mu2, sigma2 = stats_ops.finalize_stats_np(st_ev)
+            return self.calculate_frechet_distance(mu1, sigma1, mu2, sigma2)
+
+        return self._agreed(epilogue)
 
     def warmup(self, durations=(10.0,), num_files: int = None, device_stats: bool = True) -> None:
         """Run the pipeline once per clip duration (seconds), so the first

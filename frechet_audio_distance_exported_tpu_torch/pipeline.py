@@ -22,7 +22,9 @@ on the device. Planning rules, each part of the reference numerics:
   length at the model's rate taken before the resample (JAX
   pipeline.py:885-890). One row per kept frame.
 Row order of the concatenated embedding matrix is files in input order,
-patches in time order within a file.
+patches in time order within a file. Under a mesh (set_mesh) each rank
+embeds its own block of the files and the results are gathered in that
+order.
 """
 
 from __future__ import annotations
@@ -36,6 +38,8 @@ from . import registry
 from .ops import frontends as fe
 from .ops import stats as stats_ops
 from .ops.resample import resample
+from .parallel.embed import merge_stats
+from .utils.profiling import StageTimer
 
 # Files per device program by default, per device type, for every family but
 # Encodec. CPU keeps the JAX package's non-TPU default. CUDA: for VGGish, 64 is the
@@ -205,6 +209,25 @@ class EmbeddingPipeline:
             patch_chunk = max(1024, self.file_batch * 10)
         self.patch_chunk = patch_chunk
         self.verbose = verbose
+        self.mesh = None
+        self.timer = StageTimer()
+
+    def set_mesh(self, mesh) -> None:
+        """Shard the files of embed_files and accumulate_stats over a
+        parallel.mesh.DataMesh (JAX pipeline.py:426-466): every rank passes
+        the same list, embeds its own block of it on its device, and gets
+        what an unsharded call returns (every file's embeddings in input
+        order, or the global statistics). set_mesh(None) restores the
+        unsharded behaviour.
+
+        Files are sharded, not rows, so no batch is padded to a multiple of
+        the mesh size: the JAX rule that batch buckets divide by it (JAX
+        pipeline.py:450-454, 483-489) serves its row-sharded programs and has
+        no counterpart here, and file_batch and patch_chunk stay as they are.
+        """
+        if mesh is not None and mesh.device.type != self.device.type:
+            raise ValueError(f"the mesh runs on {mesh.device}, this pipeline on {self.device}")
+        self.mesh = mesh
 
     def _to_device(self, arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(arr).to(self.device)
@@ -220,15 +243,44 @@ class EmbeddingPipeline:
 
         sink: a StatsSink; the chunks then fold into sink.state on the
         device and the return value holds per-file row counts.
+
+        Under a mesh, every rank must call this with the same list; each
+        embeds its block (embed_local) and the per-file results are
+        gathered, the statistics merged (parallel.embed.merge_stats).
         """
-        with torch.inference_mode():
-            if self.cfg.family == "vggish":
-                return self._embed_vggish(audio_list, sr, strict, sink)
-            if self.cfg.family == "clap":
-                return self._embed_clap(audio_list, sr, strict, sink)
-            if self.cfg.family == "encodec":
-                return self._embed_encodec(audio_list, sr, strict, sink)
-            return self._embed_pann(audio_list, sr, strict, sink)
+        mesh = self.mesh
+        if mesh is None:
+            return self.embed_local(audio_list, sr, strict, sink)
+        part = audio_list[mesh.share(len(audio_list))]
+        local = None
+        if sink is not None:
+            # A state passed in is already global: rank 0 carries it into the merge.
+            local = StatsSink(sink.state if mesh.rank == 0 else None)
+        per_file = mesh.gather(lambda: self.embed_local(part, sr, strict, local))
+        if sink is not None:
+            sink.state = merge_stats(mesh, local.state, self.cfg.embedding_dim)
+        return per_file
+
+    def embed_local(
+        self, audio_list: List[np.ndarray], sr: int, strict: bool = False, sink=None
+    ) -> List[Optional[np.ndarray]]:
+        """embed_files over this process's list alone, with no collective
+        whatever the mesh: the sharded score path (fad.py) calls it on this
+        rank's block of a directory. Timed as the embed_files[family] stage,
+        reported under verbose (JAX pipeline.py:526, 541)."""
+        family = self.cfg.family
+        try:
+            with self.timer.stage(f"embed_files[{family}]"), torch.inference_mode():
+                if family == "vggish":
+                    return self._embed_vggish(audio_list, sr, strict, sink)
+                if family == "clap":
+                    return self._embed_clap(audio_list, sr, strict, sink)
+                if family == "encodec":
+                    return self._embed_encodec(audio_list, sr, strict, sink)
+                return self._embed_pann(audio_list, sr, strict, sink)
+        finally:
+            if self.verbose:
+                print(self.timer.report())
 
     def embed_single(self, audio: np.ndarray, sr: int) -> np.ndarray:
         """Single-file hook; raises on error."""
@@ -240,6 +292,8 @@ class EmbeddingPipeline:
         The shift is the masked mean of the first chunk. Pass the returned
         StreamingStats back as ``state`` to continue over further chunks of
         a corpus. Returns None if every file failed and no state was given.
+        Under a mesh: the statistics of every rank's files, in float64, the
+        same on every rank.
         """
         sink = StatsSink(state)
         self.embed_files(audio_list, sr, strict=False, sink=sink)

@@ -244,15 +244,24 @@ def load_audio_files(
     files = list_audio_files(directory)
     if verbose:
         print(f"[FAD-TORCH] Loading {len(files)} files from {directory}...")
+    paths = [os.path.join(directory, fname) for fname in files]
+    return load_audio_paths(paths, sample_rate, channels, dtype, num_workers, verbose)
 
+
+def load_audio_paths(
+    paths: List[str],
+    sample_rate: int,
+    channels: int,
+    dtype: str = "float32",
+    num_workers: int = 8,
+    verbose: bool = False,
+) -> List[np.ndarray]:
+    """Load the given files with a thread pool, in the given order."""
     pool = ThreadPool(num_workers)
     try:
         results = [
-            pool.apply_async(
-                load_audio,
-                args=(os.path.join(directory, fname), sample_rate, channels, dtype),
-            )
-            for fname in files
+            pool.apply_async(load_audio, args=(path, sample_rate, channels, dtype))
+            for path in paths
         ]
         out = []
         for i, r in enumerate(results, 1):

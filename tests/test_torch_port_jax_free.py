@@ -3,9 +3,10 @@
 The machine with the card has none of them, and score()'s -1 sentinel would
 turn a stray import on the scoring path into a silent wrong answer. This
 test scores a small corpus with the port (VGGish, pann-16k, encodec-24k and
-CLAP) in a subprocess whose import system refuses those modules (and the JAX
-package itself), modelled on test_torch_free_runtime.py, which guards the
-JAX package the other way.
+CLAP), then once through the CLI under a one-rank mesh inside a profiler
+trace, in a subprocess whose import system refuses those modules (and the
+JAX package itself), modelled on test_torch_free_runtime.py, which guards
+the JAX package the other way.
 """
 
 import subprocess
@@ -60,6 +61,23 @@ _CHILD = textwrap.dedent(
     for score in scores:
         assert score != -1, "score failed under the import block"
         assert np.isfinite(score) and score > 0, score
+    # The CLI, the mesh (a one-rank gloo group from torchrun's variables) and
+    # the profiling utilities, under the same block.
+    import socket
+
+    from frechet_audio_distance_exported_tpu_torch import parallel
+    from frechet_audio_distance_exported_tpu_torch.__main__ import main
+    from frechet_audio_distance_exported_tpu_torch.utils import profiling
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(s.getsockname()[1]),
+                      WORLD_SIZE="1", RANK="0")
+    s.close()
+    with profiling.trace(), profiling.annotate("cli"):
+        rc = main([bg, ev, "--weights", "random", "--ckpt-dir", ck, "--device", "cpu",
+                   "--mesh", "--device-stats", "--json"])
+    assert rc == 0 and parallel.mesh.pad_to_shards(3, 2) == 4
     loaded = [m for m in sys.modules if any(m == b or m.startswith(b + ".") for b in BLOCKED)]
     assert not loaded, loaded
     print("JAX_FREE_OK", *scores)

@@ -19,7 +19,11 @@ from frechet_audio_distance_exported_tpu.models.vggish import (  # noqa: E402
     vggish_forward,
 )
 from frechet_audio_distance_exported_tpu.utils.weights import save_weights  # noqa: E402
-from frechet_audio_distance_exported_tpu_torch.models.vggish import VGGish  # noqa: E402
+from frechet_audio_distance_exported_tpu_torch.models.vggish import (  # noqa: E402
+    CONV_CFG,
+    FC_DIMS,
+    VGGish,
+)
 from frechet_audio_distance_exported_tpu_torch import registry  # noqa: E402
 from frechet_audio_distance_exported_tpu_torch.utils import weights  # noqa: E402
 
@@ -27,6 +31,25 @@ from frechet_audio_distance_exported_tpu_torch.utils import weights  # noqa: E40
 @pytest.fixture(scope="module")
 def jax_params():
     return jax.tree_util.tree_map(np.asarray, init_vggish_params(jax.random.PRNGKey(0)))
+
+
+def vggish_tree(seed=0):
+    """A JAX-layout VGGish pytree drawn with numpy (HWIO convolutions, [in,
+    out] linears), uniform(±1/sqrt(fan_in)) like the JAX initializer: a
+    bundle for save_weights in a fraction of init_random_params' time."""
+    rng = np.random.default_rng(seed)
+
+    def layer(shape, fan_in):
+        bound = 1.0 / np.sqrt(fan_in)
+        return {"w": rng.uniform(-bound, bound, shape).astype(np.float32),
+                "b": rng.uniform(-bound, bound, shape[-1:]).astype(np.float32)}
+
+    features, cin = [], 1
+    for v in CONV_CFG:
+        if v != "M":
+            features.append(layer((3, 3, cin, v), 9 * cin))
+            cin = v
+    return {"features": features, "embeddings": [layer((i, o), i) for i, o in FC_DIMS]}
 
 
 def _module(state):
@@ -95,3 +118,18 @@ def test_get_params_modes(jax_params, tmp_path):
     assert set(registry.VALID_MODELS) == set(registry.PORTED_MODELS)
     for name in registry.VALID_MODELS:
         assert weights.get_params(name, str(tmp_path), weights="random")
+
+
+def test_numpy_tree_loads_in_both_packages(tmp_path):
+    """vggish_tree writes a bundle that both packages load to the same forward."""
+    from frechet_audio_distance_exported_tpu.utils.weights import load_weights
+
+    path = str(tmp_path / "vggish_tpu.npz")
+    save_weights(path, vggish_tree(seed=3))
+    tree = load_weights(path)
+    x = _patches(2, seed=9)
+    ref = np.asarray(vggish_forward(tree, jnp.asarray(x)))
+    with torch.inference_mode():
+        ours = _module(weights.params_from_jax(tree))(torch.from_numpy(x)).numpy()
+    assert float(np.abs(ref).mean()) > 1e-4
+    np.testing.assert_allclose(ours, ref, rtol=1e-4, atol=1e-4)
