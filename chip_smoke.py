@@ -45,6 +45,31 @@ is not exercised; in its place:
 (c) the CLI under torchrun with one process (--mesh --device-stats --json)
     on the VGGish pair must give the single-process device_stats score
     within 1e-6 relative.
+Then the host runtime (step 9): the path from a file that is not WAV, mixed
+to mono and resampled by the native C library (native/fad_native.cpp),
+into the kernels:
+(a) the native library is built from this checkout (g++) into an empty
+    directory, with its seconds and path; the step fails unless
+    native.available();
+(b) the port's own writers make 32 sines (background, 16-bit FLAC) and 32
+    noise clips (eval, in turn FLAC-24, AIFF, AIFC mu-law, AU A-law, CAF,
+    RF64, Wave64, float WAV, Ogg FLAC, and Ogg Vorbis, MP3 and Ogg Opus
+    where the system has the library: each library is reported present or
+    absent) of 10 s at 44.1 kHz stereo, 16-bit WAV copies of the background
+    and of the lossless eval files, and a 16 kHz mono FLAC pair; every file
+    is decoded, and each lossless one must equal its WAV copy;
+(c) VGGish (random weights, seed 0, file_batch 64) scores the FLAC pair,
+    the mixed pair, its lossless part and the WAV copies (within 1e-3 of
+    each other: score() reads each directory in its listing order, and the
+    FAD moves with the order of the files), the lossless clips and their
+    WAV copies in one order (the same embeddings, the FAD within 1e-6
+    relative), and 8 a side, also on the CPU plain path (1e-3);
+(d) CLAP scores the 44.1 kHz pair, resampled to 48 kHz in C, with its
+    three kernels' counts, and 4 a side on the card and the CPU (1e-3);
+(e) host times: decode per format, the C resampler against the NumPy
+    fallback at 44.1 -> 16 and 48 kHz, and the host preparation of one
+    64-clip chunk on the resample path beside the 16 kHz int16 wire, in a
+    {"host_runtime": ...} line.
 Each path runs with all four launch counts set to 0 just before it and read
 just after, so the counts show which kernels it went through: VGGish and
 PANN launch only their own log-mel kernel; CLAP launches the PANN log-mel
@@ -114,6 +139,18 @@ CLI_RTOL = 1e-6  # the one-rank CLI's device_stats score vs the single-process o
 VGGISH_SCALE = 300.0  # random-weight VGGish rows are about 1e-3: x300 gives an O(1) FAD
 STEP_FILES = 64  # files a side in the sharded score step, 10 s each
 EPILOGUE_DIMS = (128, 512, 2048)  # VGGish / Encodec, CLAP, PANN widths
+HOST_SR = 44100  # step 9: the host runtime's corpora, stereo
+HOST_CLIPS = 32  # sines (background) and noise clips (eval), 10 s each; and a 16 kHz pair
+HOST_CPU_CLIPS = 8  # per side, the VGGish pair also scored on the CPU
+HOST_CLAP_CLIPS = 4  # per side, the CLAP pair scored on the card and the CPU
+HOST_EQUAL_RTOL = 1e-6  # lossless containers vs their 16-bit WAV copies: the same arrays
+LOSSLESS_FORMATS = ("flac24", "aiff", "aifc_ulaw", "au_alaw", "caf", "rf64", "w64",
+                    "wav_float", "ogg_flac")  # G.711 too: its WAV copy holds what it decodes to
+LOSSY_FORMATS = ("vorbis", "mp3", "opus")  # where the system library is present
+HOST_EXT = {"flac16": ".flac", "flac24": ".flac", "aiff": ".aiff", "aifc_ulaw": ".aifc",
+            "au_alaw": ".au", "caf": ".caf", "rf64": ".rf64", "w64": ".w64",
+            "wav_float": ".wav", "ogg_flac": ".oga", "vorbis": ".ogg", "mp3": ".mp3",
+            "opus": ".opus"}
 
 
 def bound(flops: float, nbytes: float, flops_per_s: float = F32_FLOPS):
@@ -804,6 +841,459 @@ def cli_phase(tmp: Path, bg: str, ev: str, dev: str) -> float:
     return rec["fad"]
 
 
+def host_clip(np, index: int, kind: str, sr: int, channels: int, seconds: float):
+    """Step 9's clip `index` on the PCM16 grid: a sine (a second one, 1.5
+    times higher, on the right channel) or noise from its own seed."""
+    n = int(sr * seconds)
+    if kind == "sine":
+        t = np.arange(n) / sr
+        freq = 220.0 * 2 ** (index / 12)
+        chans = [0.5 * np.sin(2 * np.pi * freq * t), 0.3 * np.sin(2 * np.pi * 1.5 * freq * t)]
+    else:
+        rng = np.random.default_rng(SEED + 1000 * sr + index)
+        chans = [rng.standard_normal(n) * 0.1 for _ in range(channels)]
+    x = chans[0] if channels == 1 else np.stack(chans[:channels], axis=1)
+    return np.clip(np.round(x * 32768.0), -32768, 32767) / 32768.0
+
+
+def ogg_crc(data: bytes) -> int:
+    """The Ogg page checksum (CRC-32, polynomial 0x04C11DB7, not reflected)."""
+    table = OGG_CRC_TABLE
+    crc = 0
+    for byte in data:
+        crc = ((crc << 8) & 0xFFFFFFFF) ^ table[(crc >> 24) ^ byte]
+    return crc
+
+
+def _ogg_crc_table() -> list:
+    table = []
+    for i in range(256):
+        r = i << 24
+        for _ in range(8):
+            r = ((r << 1) ^ 0x04C11DB7) if r & 0x80000000 else (r << 1)
+        table.append(r & 0xFFFFFFFF)
+    return table
+
+
+OGG_CRC_TABLE = _ogg_crc_table()
+
+
+def write_ogg_flac(flac, path: str, x, sr: int) -> None:
+    """Ogg FLAC (mapping 1.0) around the port's native FLAC stream: a first
+    packet of 0x7F 'FLAC' 1.0 with the fLaC marker and STREAMINFO, then the
+    frames in packets of 16 KiB, one packet a page. The port reads Ogg FLAC
+    but, like the JAX package, writes none; this muxer is the smoke run's."""
+    import struct
+
+    native_path = path + ".native"
+    flac.write_flac(native_path, x, sr)
+    raw = Path(native_path).read_bytes()
+    Path(native_path).unlink()
+    pos = 4
+    while True:  # the metadata blocks, up to the first frame
+        last, size = raw[pos] >> 7, int.from_bytes(raw[pos + 1 : pos + 4], "big")
+        pos += 4 + size
+        if last:
+            break
+    frames = raw[pos:]
+    packets = [b"\x7fFLAC\x01\x00" + struct.pack(">H", 0) + raw[: 4 + 4 + 34]]
+    packets += [frames[i : i + 16384] for i in range(0, len(frames), 16384)]
+    pages = []
+    for seq, packet in enumerate(packets):
+        lacing = [255] * (len(packet) // 255) + [len(packet) % 255]
+        flags = (2 if seq == 0 else 0) | (4 if seq == len(packets) - 1 else 0)
+        head = (b"OggS" + struct.pack("<BBqIII", 0, flags, 0, 0xF1AC, seq, 0)
+                + bytes([len(lacing)]) + bytes(lacing))
+        crc = ogg_crc(head + packet)
+        pages.append(head[:22] + struct.pack("<I", crc) + head[26:] + packet)
+    Path(path).write_bytes(b"".join(pages))
+
+
+def write_host_file(task) -> None:
+    """One file of step 9's corpora, by the port's own writers, and its
+    16-bit WAV copy where it has one (G.711 files: of the G.711 round trip,
+    which is what they decode to). Runs in a worker process."""
+    fmt, path, index, kind, sr, channels, seconds, wav_copy = task
+    import numpy as np
+
+    from frechet_audio_distance_exported_tpu_torch.ops.resample import resample
+    from frechet_audio_distance_exported_tpu_torch.utils import (
+        aiff, au, audio_io, caf, flac, g711, mp3, opusogg, vorbis, wav64,
+    )
+
+    x = host_clip(np, index, kind, sr, channels, seconds)
+    writers = {
+        "flac16": lambda: flac.write_flac(path, x, sr),
+        "flac24": lambda: flac.write_flac(path, x, sr, bits=24),
+        "aiff": lambda: aiff.write_aiff(path, x, sr),
+        "aifc_ulaw": lambda: aiff.write_aiff(path, x, sr, subtype="ulaw"),
+        "au_alaw": lambda: au.write_au(path, x, sr, subtype="alaw"),
+        "caf": lambda: caf.write_caf(path, x, sr),
+        "rf64": lambda: wav64.write_rf64(path, x, sr),
+        "w64": lambda: wav64.write_w64(path, x, sr),
+        "wav_float": lambda: audio_io.write_wav(path, x, sr, subtype="float32"),
+        "ogg_flac": lambda: write_ogg_flac(flac, path, x, sr),
+        "vorbis": lambda: vorbis.write_ogg_vorbis(path, x, sr),
+        "mp3": lambda: mp3.write_mp3(path, x, sr),
+        "opus": lambda: opusogg.write_ogg_opus(path, resample(x, sr, 48000), 48000),
+    }
+    writers[fmt]()
+    if wav_copy:
+        pcm = np.round(x * 32768.0).astype(np.int16)
+        if fmt == "aifc_ulaw":
+            pcm = g711.ulaw_decode(g711.ulaw_encode(pcm))
+        elif fmt == "au_alaw":
+            pcm = g711.alaw_decode(g711.alaw_encode(pcm))
+        audio_io.write_wav(wav_copy, pcm / 32768.0, sr)
+
+
+def host_libraries(vorbis, mp3, opusogg) -> dict:
+    """The system codec libraries, probed with the calls the tests use."""
+    return {
+        "vorbis": {"decode": vorbis.have_vorbis(), "encode": vorbis.have_vorbis_encoder()},
+        "mp3": {"decode": mp3.have_mp3(), "encode": mp3.have_mp3_encoder()},
+        "opus": {"decode": opusogg.have_opus(), "encode": opusogg.have_opus_encoder()},
+    }
+
+
+def write_host_corpora(root: Path, libraries: dict) -> dict:
+    """Step 9's directories: HOST_CLIPS sines at 44.1 kHz stereo as 16-bit
+    FLAC (background) and HOST_CLIPS noise clips split in turn across the
+    lossless containers and the lossy ones whose library is present (eval);
+    16-bit WAV copies of the background and of the lossless eval files;
+    a 16 kHz mono 16-bit FLAC pair; and small pairs for the CPU. Written by
+    a pool of worker processes."""
+    import multiprocessing
+
+    formats = list(LOSSLESS_FORMATS) + [f for f in LOSSY_FORMATS
+                                        if all(libraries[f].values())]
+    dirs = {name: root / f"host_{name}" for name in (
+        "bg", "ev", "ev_lossless", "bg_wav", "ev_wav", "bg16", "ev16", "bg_small", "ev_small",
+        "bg_clap", "ev_clap")}
+    for d in dirs.values():
+        d.mkdir()
+    tasks, ev_formats = [], {}
+    for i in range(HOST_CLIPS):
+        tasks.append(("flac16", str(dirs["bg"] / f"sine{i:02d}.flac"), i, "sine", HOST_SR, 2,
+                      CLIP_SECONDS, str(dirs["bg_wav"] / f"sine{i:02d}.wav")))
+        fmt = formats[i % len(formats)]
+        ev_formats[f"noise{i:02d}{HOST_EXT[fmt]}"] = fmt
+        wav_copy = str(dirs["ev_wav"] / f"noise{i:02d}.wav") if fmt in LOSSLESS_FORMATS else None
+        tasks.append((fmt, str(dirs["ev"] / f"noise{i:02d}{HOST_EXT[fmt]}"), i, "noise", HOST_SR, 2,
+                      CLIP_SECONDS, wav_copy))
+        for side, kind in (("bg16", "sine"), ("ev16", "noise")):
+            tasks.append(("flac16", str(dirs[side] / f"{kind}{i:02d}.flac"), i, kind, 16000, 1,
+                          CLIP_SECONDS, None))
+    t0 = time.perf_counter()
+    ctx = multiprocessing.get_context("spawn")
+    with ctx.Pool(min(8, os.cpu_count() or 1)) as pool:
+        pool.map(write_host_file, tasks, chunksize=1)
+    for name, fmt in ev_formats.items():
+        if fmt in LOSSLESS_FORMATS:
+            os.link(dirs["ev"] / name, dirs["ev_lossless"] / name)
+    names = sorted(ev_formats)
+    for i in range(HOST_CPU_CLIPS):
+        os.link(dirs["bg"] / f"sine{i:02d}.flac", dirs["bg_small"] / f"sine{i:02d}.flac")
+        os.link(dirs["ev"] / names[i], dirs["ev_small"] / names[i])
+    for i in range(HOST_CLAP_CLIPS):
+        os.link(dirs["bg"] / f"sine{i:02d}.flac", dirs["bg_clap"] / f"sine{i:02d}.flac")
+        os.link(dirs["ev"] / names[i], dirs["ev_clap"] / names[i])
+    print(f"host runtime (b): {len(tasks)} files written in {time.perf_counter() - t0:.1f} s; "
+          f"eval formats in turn: {formats}")
+    return {"dirs": {k: str(v) for k, v in dirs.items()}, "ev_formats": ev_formats,
+            "formats": formats}
+
+
+def decode_host_corpora(np, audio_io, corpora: dict) -> dict:
+    """Decode every file of step 9's corpora: any exception fails the run.
+    Each lossless file must equal its 16-bit WAV copy, each lossy one must
+    hold 10 s of two channels. Returns the decode ms of each file by format."""
+    dirs, ev_formats = corpora["dirs"], corpora["ev_formats"]
+    times = {}
+
+    def timed_read(path):
+        t0 = time.perf_counter()
+        data, sr = audio_io.sf_read(path)
+        return data, sr, (time.perf_counter() - t0) * 1e3
+
+    checked = 0
+    for side, prefix in (("bg", "sine"), ("ev", "noise")):
+        for name in sorted(os.listdir(dirs[side])):
+            fmt = "flac16" if side == "bg" else ev_formats[name]
+            data, sr, ms = timed_read(os.path.join(dirs[side], name))
+            times.setdefault(fmt, []).append(ms)
+            check(bool(np.isfinite(data).all()) and data.ndim == 2 and data.shape[1] == 2,
+                  f"host runtime: {name} ({fmt}) decoded to {data.shape}")
+            stem = os.path.splitext(name)[0]
+            if fmt in LOSSLESS_FORMATS or side == "bg":
+                wav, wav_sr, _ = timed_read(os.path.join(dirs[f"{side}_wav"], stem + ".wav"))
+                check(sr == wav_sr == HOST_SR and np.array_equal(data, wav),
+                      f"host runtime: {name} ({fmt}) does not decode to its WAV copy")
+                checked += 1
+            else:
+                rate = 48000 if fmt == "opus" else HOST_SR
+                check(sr == rate and abs(len(data) - rate * CLIP_SECONDS) <= 0.01 * rate
+                      * CLIP_SECONDS, f"host runtime: {name} ({fmt}) is {len(data)} frames at {sr}")
+    for side in ("bg16", "ev16"):
+        for name in sorted(os.listdir(dirs[side])):
+            data, sr, ms = timed_read(os.path.join(dirs[side], name))
+            times.setdefault("flac16_16k_mono", []).append(ms)
+            check(sr == 16000 and data.shape == (int(16000 * CLIP_SECONDS),),
+                  f"host runtime: {side}/{name} decoded to {data.shape} at {sr}")
+    print(f"host runtime (b): every file decoded; {checked} lossless files equal their WAV copies")
+    return times
+
+
+def host_chunk_prep(np, audio_io, resample, pipeline, paths, target_sr: int, kind,
+                    workers: int, native_resample: bool = True) -> dict:
+    """Host preparation of one chunk of files, stage by stage: decode (a
+    pool of `workers` threads, as score() loads), mono mix and resample (the
+    same pool; in NumPy under FAD_TPU_DISABLE_NATIVE=1 unless
+    native_resample), then the pipeline's own steps ("vggish": float32 and
+    the int16 grid check; else `kind` is CLAP's _clap_prep) and _pack_wave,
+    as the pipeline runs them. ms per stage, the wire's dtype."""
+    from multiprocessing.dummy import Pool as ThreadPool
+
+    out = {}
+    with ThreadPool(workers) as pool:
+        t0 = time.perf_counter()
+        decoded = pool.map(lambda p: audio_io.sf_read(p), paths)
+        t1 = time.perf_counter()
+
+        def mix_resample(item):
+            data, sr = item
+            mono = data.mean(axis=1) if data.ndim > 1 else data
+            return mono if sr == target_sr else resample(mono, sr, target_sr)
+
+        if not native_resample:
+            os.environ["FAD_TPU_DISABLE_NATIVE"] = "1"
+        try:
+            clips = pool.map(mix_resample, decoded)
+        finally:
+            os.environ.pop("FAD_TPU_DISABLE_NATIVE", None)
+        t2 = time.perf_counter()
+    if kind == "vggish":
+        rows = []
+        for clip in clips:
+            data = clip.astype(np.float32)
+            q = pipeline.as_int16_exact(data)
+            rows.append(data if q is None else q)
+        full_scale = 32768.0
+    else:
+        rows = [kind(clip, target_sr)[0] for clip in clips]
+        full_scale = 32767.0
+    wave = pipeline._pack_wave(rows, len(rows), pipeline.bucket_len(max(len(r) for r in rows)),
+                               full_scale)
+    t3 = time.perf_counter()
+    out.update(decode_ms=(t1 - t0) * 1e3, mix_resample_ms=(t2 - t1) * 1e3,
+               prep_pack_ms=(t3 - t2) * 1e3, total_ms=(t3 - t0) * 1e3, wire=str(wave.dtype),
+               files=len(paths))
+    return out
+
+
+def numpy_resample(resample, x, sr_orig: int, sr_new: int):
+    """The resampler's NumPy fallback: FAD_TPU_DISABLE_NATIVE=1 for the call."""
+    os.environ["FAD_TPU_DISABLE_NATIVE"] = "1"
+    try:
+        return resample(x, sr_orig, sr_new)
+    finally:
+        del os.environ["FAD_TPU_DISABLE_NATIVE"]
+
+
+def host_stems(container_dir: str, wav_dir: str, wanted: str) -> list:
+    """(stem, extension) of each clip of a container directory that has a WAV
+    copy, sorted by stem, with the extension of the directory `wanted`."""
+    ext = {os.path.splitext(n)[0]: os.path.splitext(n)[1] for n in os.listdir(container_dir)}
+    stems = sorted(os.path.splitext(n)[0] for n in os.listdir(wav_dir))
+    return [(stem, ".wav" if wanted == wav_dir else ext[stem]) for stem in stems]
+
+
+def fad_of(fad, emb_bg, emb_ev) -> float:
+    """The host FAD of two embedding matrices, as score() computes it."""
+    return float(fad.calculate_frechet_distance(*fad.calculate_embd_statistics(emb_bg),
+                                                *fad.calculate_embd_statistics(emb_ev)))
+
+
+def host_runtime_phase(torch, np, tmp: Path, calculator, launches, smi: str,
+                       batch: int) -> dict:
+    """Step 9: the host runtime on the slice's path (decode a non-WAV file,
+    mix to mono, the native resampler, the existing kernels):
+    (a) build the native library from this checkout into an empty directory;
+    (b) write and decode step 9's corpora;
+    (c) VGGish on the card: the 16 kHz FLAC pair, the mixed pair, its
+        lossless part against the WAV copy (1e-6 relative) and a small pair
+        against the CPU plain path;
+    (d) CLAP on the 44.1 kHz mixed pair (resampled to 48 kHz in C), its three
+        kernels' counts, and a small pair on the card and the CPU;
+    (e) host times: decode per format, C against NumPy resampling, and the
+        host preparation of one 64-clip chunk."""
+    from frechet_audio_distance_exported_tpu_torch import native, pipeline
+    from frechet_audio_distance_exported_tpu_torch.ops.resample import resample
+    from frechet_audio_distance_exported_tpu_torch.utils import audio_io, mp3, opusogg, vorbis
+
+    # (a) The native library, built from this checkout's source into an empty
+    #     directory (the process's own copy may already be loaded: the
+    #     resample paths of steps 5 and 6 build it on first use).
+    build_dir = tmp / "native_build"
+    os.environ["FAD_TPU_TORCH_BUILD_DIR"] = str(build_dir)
+    try:
+        t0 = time.perf_counter()
+        built = native.build()
+        build_s = time.perf_counter() - t0
+    finally:
+        del os.environ["FAD_TPU_TORCH_BUILD_DIR"]
+    check(native.available(), "host runtime (a): the native library is not available")
+    print(f"host runtime (a): native library built in {build_s:.2f} s -> {built} "
+          f"(g++ {' '.join(native.CXX_FLAGS)}); loaded: {native.library_path()}")
+
+    # (b) The corpora, by the port's own writers.
+    libraries = host_libraries(vorbis, mp3, opusogg)
+    for name, have in libraries.items():
+        state = "present" if all(have.values()) else f"ABSENT ({have})"
+        print(f"host runtime (b): system library for {name}: {state}")
+    corpora = write_host_corpora(tmp, libraries)
+    dirs = corpora["dirs"]
+    decode_times = decode_host_corpora(np, audio_io, corpora)
+
+    # (c) VGGish at full width on the card.
+    fad = calculator("vggish")
+    check(fad.pipeline.file_batch == batch, "vggish file_batch is not the CUDA default")
+    calls = [
+        ("flac16k", (dirs["bg16"], dirs["ev16"]), {}),
+        ("mixed", (dirs["bg"], dirs["ev"]), {}),
+        ("lossless", (dirs["bg"], dirs["ev_lossless"]), {}),
+        ("wav_copy", (dirs["bg_wav"], dirs["ev_wav"]), {}),
+        ("small", (dirs["bg_small"], dirs["ev_small"]), {}),
+    ]
+    scores, counts = run_path(torch, fad, calls, launches, "fused_vggish_logmel",
+                              "host runtime vggish")
+    check_only(counts, "fused_vggish_logmel", "host runtime vggish")
+    check(counts["fused_vggish_logmel"] >= 2 * len(calls),
+          f"host runtime vggish: {counts['fused_vggish_logmel']} launches for {len(calls)} pairs")
+    # The lossless containers against their WAV copies: the same arrays, so
+    # in one file order the same embeddings and the same score (within
+    # HOST_EQUAL_RTOL). score() reads each directory in its listing order,
+    # and the FAD of one set of embeddings moves with the order of its files
+    # (float32 means, a near-singular float64 epilogue at a small random-
+    # weight FAD): that spread is measured here, and the two directories'
+    # scores are held to the FAD bar (FAD_DELTA).
+    order = {}
+    for name, bg_dir, ev_dir in (("containers", dirs["bg"], dirs["ev_lossless"]),
+                                 ("wav_copies", dirs["bg_wav"], dirs["ev_wav"])):
+        order[name] = [
+            fad.get_embeddings([audio_io.load_audio(os.path.join(d, stem + ext), 16000, 1)
+                                for stem, ext in stems], 16000)
+            for d, stems in ((bg_dir, host_stems(dirs["bg"], dirs["bg_wav"], bg_dir)),
+                             (ev_dir, host_stems(dirs["ev_lossless"], dirs["ev_wav"], ev_dir)))]
+    emb_diff = max(float(np.abs(a - b).max()) for a, b in zip(order["containers"],
+                                                               order["wav_copies"]))
+    same = {k: fad_of(fad, *v) for k, v in order.items()}
+    rel = abs(same["containers"] - same["wav_copies"]) / abs(same["wav_copies"])
+    print(f"host runtime (c) vggish, one file order: containers {same['containers']!r} vs WAV "
+          f"copies {same['wav_copies']!r}, relative {rel:.3e}; embeddings max abs difference "
+          f"{emb_diff:.3e}")
+    check(emb_diff <= EMBEDDING_ATOL, f"host runtime (c): embeddings differ by {emb_diff}")
+    check(rel <= HOST_EQUAL_RTOL, f"host runtime (c): containers vs WAV copies in one order: "
+                                  f"{rel} > {HOST_EQUAL_RTOL}")
+    rng = np.random.default_rng(SEED + 9)
+    per_file = [e.reshape(-1, int(CLIP_SECONDS / 0.96), e.shape[-1]) for e in order["containers"]]
+    shuffled = [fad_of(fad, *[blocks[rng.permutation(len(blocks))].reshape(-1, blocks.shape[-1])
+                                  for blocks in per_file]) for _ in range(8)]
+    spread = (max(shuffled) - min(shuffled)) / abs(same["containers"])
+    dir_rel = abs(scores["lossless"] - scores["wav_copy"]) / abs(scores["wav_copy"])
+    print(f"host runtime (c) vggish: the same embeddings in 8 file orders span {spread:.3e} "
+          f"relative; score() of the two directories (each in its listing order): "
+          f"{scores['lossless']!r} vs {scores['wav_copy']!r}, relative {dir_rel:.3e}")
+    check(abs(scores["lossless"] - scores["wav_copy"]) <= FAD_DELTA and dir_rel <= FAD_DELTA,
+          f"host runtime (c): lossless vs WAV copy directories {dir_rel} > {FAD_DELTA}")
+    cpu_vggish = calculator("vggish", "cpu")
+    fad_delta(scores["small"], cpu_vggish, dirs["bg_small"], dirs["ev_small"],
+              "host runtime vggish (8 a side)")
+    vggish_counts = counts
+    del cpu_vggish
+
+    # (e), on the card's VGGish calculator: one 64-clip chunk of each path.
+    workers = fad.audio_load_worker
+    resample_paths = [os.path.join(dirs[s], f) for s in ("bg", "ev") for f in
+                      sorted(os.listdir(dirs[s]))]
+    int16_paths = [os.path.join(dirs[s], f) for s in ("bg16", "ev16") for f in
+                   sorted(os.listdir(dirs[s]))]
+    chunks = {
+        "vggish_44k_resample_c": host_chunk_prep(np, audio_io, resample, pipeline, resample_paths,
+                                                 16000, "vggish", workers),
+        "vggish_16k_int16_wire": host_chunk_prep(np, audio_io, resample, pipeline, int16_paths,
+                                                 16000, "vggish", workers),
+        "vggish_44k_resample_c_one_thread": host_chunk_prep(
+            np, audio_io, resample, pipeline, resample_paths, 16000, "vggish", 1),
+    }
+    chunks["vggish_44k_resample_numpy"] = host_chunk_prep(
+        np, audio_io, resample, pipeline, resample_paths, 16000, "vggish", workers,
+        native_resample=False)
+    t0 = time.perf_counter()
+    audio_io.load_audio_paths(resample_paths, 16000, 1, num_workers=workers)
+    chunks["vggish_44k_load_audio_paths_ms"] = (time.perf_counter() - t0) * 1e3
+    del fad
+
+    # (d) CLAP on the 44.1 kHz pair, resampled to 48 kHz by the C resampler.
+    fad = calculator("clap")
+    clap_scores, counts = run_path(
+        torch, fad, [("mixed", (dirs["bg"], dirs["ev"]), {}),
+                     ("small", (dirs["bg_clap"], dirs["ev_clap"]), {})],
+        launches, "swin_block_fused", "host runtime clap")
+    check_clap_counts(counts, "host runtime clap")
+    clap_counts = counts
+    fad_delta(clap_scores["small"], calculator("clap", "cpu"), dirs["bg_clap"], dirs["ev_clap"],
+              "host runtime clap (4 a side)")
+    chunks["clap_44k_resample_c"] = host_chunk_prep(np, audio_io, resample, pipeline,
+                                                    resample_paths, 48000,
+                                                    fad.pipeline._clap_prep, workers)
+    del fad
+
+    # (e) One clip: decode per format, and the resampler, C against NumPy.
+    decode_ms = {fmt: float(np.median(ms)) for fmt, ms in sorted(decode_times.items())}
+    clip = audio_io.sf_read(resample_paths[0])[0].mean(axis=1).astype(np.float32)
+    resample_ms = {}
+    for target in (16000, 48000):
+        fast, ms_c = [], []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            fast = resample(clip, HOST_SR, target)
+            ms_c.append((time.perf_counter() - t0) * 1e3)
+        slow, ms_np = [], []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            slow = numpy_resample(resample, clip, HOST_SR, target)
+            ms_np.append((time.perf_counter() - t0) * 1e3)
+        diff = float(np.abs(fast.astype(np.float64) - slow).max())
+        resample_ms[str(target)] = {"c_ms": float(np.median(ms_c)), "numpy_ms": float(np.median(ms_np)),
+                                    "max_abs_diff": diff, "samples_out": int(fast.size)}
+        print(f"host runtime (e) resample 44.1 -> {target / 1000:g} kHz, one {CLIP_SECONDS:g} s "
+              f"clip: C "
+              f"{resample_ms[str(target)]['c_ms']:.2f} ms, NumPy "
+              f"{resample_ms[str(target)]['numpy_ms']:.2f} ms, max |C - NumPy| {diff:.3e}")
+        check(diff <= 1e-6, f"host runtime (e): C vs NumPy resample at {target}: {diff}")
+    for fmt, ms in decode_ms.items():
+        print(f"host runtime (e) decode {fmt}: {ms:.2f} ms a {CLIP_SECONDS:g} s clip (median)")
+    for name, row in chunks.items():
+        print(f"host runtime (e) chunk {name}: {row}")
+    return {
+        "card": smi,
+        "native": {"build_s": build_s, "path": str(built.relative_to(tmp)),
+                   "flags": list(native.CXX_FLAGS)},
+        "libraries": libraries,
+        "eval_formats": corpora["formats"],
+        "vggish": {"scores": scores, "launches": vggish_counts,
+                   "one_order": {**same, "rel": rel, "embedding_max_abs": emb_diff},
+                   "order_spread_rel": spread, "directories_rel": dir_rel},
+        "clap": {"scores": clap_scores, "launches": clap_counts},
+        "decode_ms": decode_ms,
+        "resample_ms": resample_ms,
+        "chunk_prep_ms": chunks,
+        "cpu_threads": torch.get_num_threads(),
+        "cpu_count": os.cpu_count(),
+    }
+
+
 def main() -> int:
     import torch
     import torch.distributed as dist
@@ -1037,6 +1527,15 @@ def main() -> int:
                               "launches": [r[m]["launches"] for r in ranks]}
                           for m in ("vggish", "clap")},
         }}))
+
+        # 9. The host runtime: non-WAV containers decoded, mixed to mono and
+        #    resampled by the native C library into the VGGish and CLAP
+        #    paths; then the host's times.
+        t0 = time.perf_counter()
+        host = host_runtime_phase(torch, np, tmp, calculator, launches, smi[0], batch)
+        host["seconds"] = time.perf_counter() - t0
+        print(f"host runtime: step 9 took {host['seconds']:.1f} s")
+        print(json.dumps({"host_runtime": host}))
 
     print(json.dumps({"kernels": [
         {

@@ -94,7 +94,9 @@ class FrechetAudioDistance:
             audio_load_worker: decode thread count.
         Extensions:
             weights: 'auto' (load the model's bundle from <ckpt_dir>, e.g.
-                vggish_tpu.npz) or 'random'.
+                vggish_tpu.npz; on a miss, download it or the reference
+                artifact and convert that, unless FAD_TPU_OFFLINE is set)
+                or 'random'.
             seed: generator seed for weights='random'.
             file_batch / patch_chunk: batching knobs of the pipeline.
             device: 'cuda' (default; raises without CUDA) or 'cpu'.

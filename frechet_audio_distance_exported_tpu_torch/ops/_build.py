@@ -7,7 +7,8 @@ sources compile in parallel (one nvcc process each, all started together)
 and are then linked. The library lands in the directory that
 FAD_TPU_TORCH_BUILD_DIR names (for an install the user cannot write to; the
 counterpart of the JAX package's FAD_TPU_NATIVE_DIR), else in the package's
-_build/ (listed in .gitignore). It is named by a hash of the sources, the headers they include (csrc/*.cuh) and
+_build/ (listed in .gitignore), where the native host library (native/)
+is built too. It is named by a hash of the sources, the headers they include (csrc/*.cuh) and
 the flags, so an edited source or header is rebuilt and an unchanged tree
 is loaded as it is. A missing nvcc, a failed build or
 a failed load raises.

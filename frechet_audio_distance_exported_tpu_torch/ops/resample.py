@@ -1,10 +1,12 @@
 """Kaiser-windowed sinc resampler (resampy ``kaiser_best`` parity), NumPy.
 
-A copy of the NumPy path of frechet_audio_distance_exported_tpu/ops/resample.py
-(L19-96, L104-135 and _accumulate_wing), without the native C call, so the
-port never imports the JAX package. A band-limited sinc interpolation
-evaluated through a precomputed, linearly interpolated filter table; output
-length is ``int(n * sr_new / sr_orig)`` like resampy.
+A copy of frechet_audio_distance_exported_tpu/ops/resample.py (L19-135 and
+_accumulate_wing), so the port never imports the JAX package. A band-limited
+sinc interpolation evaluated through a precomputed, linearly interpolated
+filter table; output length is ``int(n * sr_new / sr_orig)`` like resampy.
+As in the JAX package (L96-101), the wing loop runs in the native C library
+(native/fad_native.cpp, OpenMP) when it is built, and in NumPy otherwise or
+under FAD_TPU_DISABLE_NATIVE=1.
 """
 
 from __future__ import annotations
@@ -82,6 +84,12 @@ def _resample_1d(x: np.ndarray, sr_orig: int, sr_new: int, filter: str) -> np.nd
     delta[:-1] = np.diff(win)
 
     out_dtype = x.dtype if np.issubdtype(x.dtype, np.floating) else np.float64
+    from .. import native  # lazy: builds the C library on first use
+
+    y_native = native.resample_kaiser(x, sample_ratio, n_out, win, delta, num_table)
+    if y_native is not None:
+        return y_native.astype(out_dtype, copy=False)
+
     scale = min(1.0, sample_ratio)
     index_step = int(scale * num_table)
     time_increment = 1.0 / sample_ratio

@@ -1,9 +1,9 @@
 """Model registry: names, sample rates, embedding dims, weight bundles.
 
-Copied from frechet_audio_distance_exported_tpu/registry.py (L15-48,
-L91-138) so the port never imports the JAX package. The download URL tables
-stay behind (downloads are not ported); the PANN frontend geometry lives in
-ops/frontends.PANN_CONFIGS.
+Copied from frechet_audio_distance_exported_tpu/registry.py (L15-138) so
+the port never imports the JAX package, the download URL and sha256 tables
+and the reference artifacts' names included (L50-88); the PANN frontend
+geometry lives in ops/frontends.PANN_CONFIGS.
 """
 
 from __future__ import annotations
@@ -46,6 +46,46 @@ WEIGHT_FILENAMES = {
     "clap": "clap_tpu.npz",
 }
 
+# GitHub release URLs of the reference torch artifacts (reference:
+# fad.py:95-106, EXPORTED_MODEL_URLS). On a weight-bundle cache miss, the
+# artifact is downloaded here and converted in-process to .npz
+# (utils/convert.py).
+EXPORTED_MODEL_URLS = {
+    "vggish": "https://github.com/gibiansky/frechet-audio-distance-exported/releases/download/v0.1/vggish_exported.pt2",
+    "pann-8k": "https://github.com/gibiansky/frechet-audio-distance-exported/releases/download/v0.2/pann_cnn14_8k_exported.pt2",
+    "pann-16k": "https://github.com/gibiansky/frechet-audio-distance-exported/releases/download/v0.2/pann_cnn14_16k_exported.pt2",
+    "pann-32k": "https://github.com/gibiansky/frechet-audio-distance-exported/releases/download/v0.2/pann_cnn14_32k_exported.pt2",
+    "encodec-24k": "https://github.com/gibiansky/frechet-audio-distance-exported/releases/download/v0.3/encodec_24k_exported.pt",
+    "encodec-48k": "https://github.com/gibiansky/frechet-audio-distance-exported/releases/download/v0.3/encodec_48k_exported.pt",
+    "clap": "https://github.com/gibiansky/frechet-audio-distance-exported/releases/download/v0.3/clap_exported.pt2",
+}
+
+# Optional sha256 pins for downloaded artifacts, verified when set (the
+# reference does no integrity checking; empty entries skip verification).
+EXPORTED_MODEL_SHA256: dict = {}
+
+# Direct URLs for pre-converted .npz weight bundles (torch-free install
+# path). Checked before EXPORTED_MODEL_URLS; none hosted yet — populate
+# when bundles are published, or point at a private mirror via code.
+WEIGHT_BUNDLE_URLS: dict = {}
+
+# Optional sha256 pins for the bundles above, verified when set (same
+# semantics as EXPORTED_MODEL_SHA256).
+WEIGHT_BUNDLE_SHA256: dict = {}
+
+# The reference torch artifacts these weight bundles are converted from
+# (reference: fad.py:95-106, fad.py:252-270). utils/weights.get_params
+# converts these when present in ckpt_dir.
+REFERENCE_ARTIFACTS = {
+    "vggish": "vggish_exported.pt2",
+    "pann-8k": "pann_cnn14_8k_exported.pt2",
+    "pann-16k": "pann_cnn14_16k_exported.pt2",
+    "pann-32k": "pann_cnn14_32k_exported.pt2",
+    "encodec-24k": "encodec_24k_exported.pt",
+    "encodec-48k": "encodec_48k_exported.pt",
+    "clap": "clap_exported.pt2",
+}
+
 
 def default_ckpt_dir() -> str:
     """Default cache directory for weight bundles (shared with the JAX
@@ -65,6 +105,7 @@ class ModelConfig:
     sample_rate: int
     embedding_dim: int
     weight_filename: str = ""
+    reference_artifact: str = ""
 
     @property
     def family(self) -> str:
@@ -86,6 +127,7 @@ def get_model_config(model_name: str) -> ModelConfig:
         sample_rate=cfg["sample_rate"],
         embedding_dim=cfg["embedding_dim"],
         weight_filename=WEIGHT_FILENAMES[model_name],
+        reference_artifact=REFERENCE_ARTIFACTS[model_name],
     )
 
 

@@ -18,6 +18,10 @@ state_dict keys are the flat keys with "." for "/", and only the patch-embed
 convolution turns HWIO -> OIHW. Encodec: convolution [k, in, out] ->
 [out, in, k], GroupNorm (gamma, beta) -> (weight, bias), LSTM [in, 4H] ->
 nn.LSTM's [4H, in] (the gate order i, f, g, o is the same).
+
+On a cache miss, get_params downloads a bundle or the reference artifact
+and converts the artifact in process (JAX utils/weights.py:103-193), and
+save_weights writes the bundle in the JAX package's format.
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ from ..models import encodec
 from ..models.clap import CLAP
 from ..models.pann import BLOCK_CHANNELS
 from ..models.vggish import CONV_CFG, FC_DIMS
+from . import convert, download
 
 
 def _f32(a) -> torch.Tensor:
@@ -162,6 +167,27 @@ def _unflatten(flat: Mapping[str, np.ndarray]):
     return lists(root)
 
 
+def flatten_params(params, prefix: str = "") -> Dict[str, np.ndarray]:
+    """A JAX-layout tree -> flat "a/0/b" keys (JAX utils/weights.py:21-31)."""
+    out = {}
+    if isinstance(params, dict):
+        items = params.items()
+    elif isinstance(params, (list, tuple)):
+        items = ((str(i), v) for i, v in enumerate(params))
+    else:
+        return {prefix.rstrip("/"): np.asarray(params)}
+    for k, v in items:
+        out.update(flatten_params(v, f"{prefix}{k}/"))
+    return out
+
+
+def save_weights(path: str, params) -> None:
+    """Write a JAX-layout tree as the .npz bundle both packages load (JAX
+    utils/weights.py:56-58)."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    np.savez(path, **{k: np.asarray(v) for k, v in flatten_params(params).items()})
+
+
 def load_weights(path: str, family: str = None) -> Dict[str, torch.Tensor]:
     """A VGGish, PANN, Encodec or CLAP .npz bundle -> state_dict. With ``family`` given, a
     bundle of another family raises ValueError."""
@@ -274,22 +300,7 @@ def init_random_params(model_name: str, seed: int = 0) -> Dict[str, torch.Tensor
     return state
 
 
-def get_params(model_name: str, ckpt_dir: str, weights: str = "auto", seed: int = 0):
-    """Resolve a state_dict: weights='random' draws one from ``seed``;
-    weights='auto' loads <ckpt_dir>/<bundle>.npz (downloading and artifact
-    conversion are not ported yet)."""
-    if weights == "random":
-        return init_random_params(model_name, seed)
-    if weights != "auto":
-        raise ValueError(f"weights must be 'auto' or 'random', got {weights!r}")
-    cfg = registry.ported_model_config(model_name)
-    bundle_path = os.path.join(ckpt_dir, cfg.weight_filename)
-    if not os.path.exists(bundle_path):
-        raise FileNotFoundError(
-            f"Weight bundle not found at {bundle_path}. Convert it with the JAX "
-            f"package's tools/extract_weights.py --model {model_name} --ckpt-dir "
-            f"{ckpt_dir}, or pass weights='random' for testing."
-        )
+def _load_bundle(model_name: str, cfg, bundle_path: str) -> Dict[str, torch.Tensor]:
     try:
         state = load_weights(bundle_path, cfg.family)
     except Exception as e:
@@ -297,8 +308,72 @@ def get_params(model_name: str, ckpt_dir: str, weights: str = "auto", seed: int 
         # the file and the fix.
         raise RuntimeError(
             f"Weight bundle {bundle_path} exists but failed to load "
-            f"({type(e).__name__}: {e}). Delete it and convert it again."
+            f"({type(e).__name__}: {e}). Delete it to download or convert it again."
         ) from e
     if cfg.family == "encodec":
         check_encodec_bundle(state, model_name, bundle_path)
     return state
+
+
+def get_params(model_name: str, ckpt_dir: str, weights: str = "auto", seed: int = 0):
+    """Resolve a state_dict (JAX utils/weights.py:103-193).
+
+    weights='auto': load <ckpt_dir>/<bundle>.npz; on a miss, try in order a
+    hosted .npz bundle URL (registry.WEIGHT_BUNDLE_URLS), a reference torch
+    artifact already in ckpt_dir, then downloading the reference artifact
+    (registry.EXPORTED_MODEL_URLS, the reference's download-on-miss,
+    reference: fad.py:275-286). An artifact is converted in process
+    (utils/convert.py) and cached as the .npz bundle both packages read;
+    otherwise raise, naming the file, FAD_TPU_OFFLINE and the failed
+    attempts. weights='random' draws a state_dict from ``seed``.
+    """
+    if weights == "random":
+        return init_random_params(model_name, seed)
+    if weights != "auto":
+        raise ValueError(f"weights must be 'auto' or 'random', got {weights!r}")
+    cfg = registry.ported_model_config(model_name)
+    bundle_path = os.path.join(ckpt_dir, cfg.weight_filename)
+    if os.path.exists(bundle_path):
+        return _load_bundle(model_name, cfg, bundle_path)
+
+    download_errors = []
+    bundle_url = registry.WEIGHT_BUNDLE_URLS.get(model_name)
+    if bundle_url and not download.offline():
+        try:
+            print(f"[FAD-TORCH] Downloading {model_name} weight bundle to {ckpt_dir}...")
+            download.download_url_to_file(
+                bundle_url, bundle_path, sha256=registry.WEIGHT_BUNDLE_SHA256.get(model_name)
+            )
+            return _load_bundle(model_name, cfg, bundle_path)
+        except Exception as e:  # fall through to the artifact path
+            download_errors.append(f"bundle {bundle_url}: {e}")
+            if os.path.exists(bundle_path):
+                os.remove(bundle_path)  # don't poison future runs
+
+    artifact_path = os.path.join(ckpt_dir, cfg.reference_artifact)
+    if not os.path.exists(artifact_path):
+        artifact_url = registry.EXPORTED_MODEL_URLS.get(model_name)
+        if artifact_url and not download.offline():
+            try:
+                print(f"[FAD-TORCH] Downloading {model_name} reference artifact to {ckpt_dir}...")
+                download.download_url_to_file(
+                    artifact_url, artifact_path,
+                    sha256=registry.EXPORTED_MODEL_SHA256.get(model_name),
+                )
+                print("[FAD-TORCH] Download complete.")
+            except Exception as e:
+                download_errors.append(f"artifact {artifact_url}: {e}")
+    if os.path.exists(artifact_path):
+        save_weights(bundle_path, convert.extract(model_name, artifact_path))
+        return _load_bundle(model_name, cfg, bundle_path)
+
+    detail = ""
+    if download.offline():
+        detail = " Downloads are disabled (FAD_TPU_OFFLINE is set)."
+    elif download_errors:
+        detail = " Download attempts failed: " + "; ".join(download_errors) + "."
+    raise FileNotFoundError(
+        f"Weight bundle not found at {bundle_path} and no reference artifact "
+        f"({cfg.reference_artifact}) to convert in {ckpt_dir}.{detail} Place either "
+        f"file there, or pass weights='random' for testing."
+    )

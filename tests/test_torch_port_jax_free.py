@@ -4,7 +4,8 @@ The machine with the card has none of them, and score()'s -1 sentinel would
 turn a stray import on the scoring path into a silent wrong answer. This
 test scores a small corpus with the port (VGGish, pann-16k, encodec-24k and
 CLAP), then once through the CLI under a one-rank mesh inside a profiler
-trace, in a subprocess whose import system refuses those modules (and the
+trace, then decodes one file of each lossless container, resamples through
+the native C library and scores a directory of FLAC files, in a subprocess whose import system refuses those modules (and the
 JAX package itself), modelled on test_torch_free_runtime.py, which guards
 the JAX package the other way.
 """
@@ -78,6 +79,35 @@ _CHILD = textwrap.dedent(
         rc = main([bg, ev, "--weights", "random", "--ckpt-dir", ck, "--device", "cpu",
                    "--mesh", "--device-stats", "--json"])
     assert rc == 0 and parallel.mesh.pad_to_shards(3, 2) == 4
+    # The host runtime: one file of each lossless container decoded, the
+    # native C resampler, and a directory of FLAC files scored.
+    from frechet_audio_distance_exported_tpu_torch import native
+    from frechet_audio_distance_exported_tpu_torch.ops.resample import resample
+    from frechet_audio_distance_exported_tpu_torch.utils import aiff, au, audio_io, caf, flac, wav64
+
+    assert native.available(), "the native host library did not build"
+    t22 = np.arange(11025) / 22050
+    stereo = np.stack([np.sin(2 * np.pi * 440 * t22), np.sin(2 * np.pi * 660 * t22)], 1) * 0.4
+    writers = {{
+        "a.flac": flac.write_flac, "b.aiff": aiff.write_aiff, "c.au": au.write_au,
+        "d.caf": caf.write_caf, "e.rf64": wav64.write_rf64, "f.w64": wav64.write_w64,
+        "g.wav": audio_io.write_wav,
+        "h.aifc": lambda path, x, rate: aiff.write_aiff(path, x, rate, subtype="float32"),
+    }}
+    for name, write in writers.items():
+        write(os.path.join(ck, name), stereo, 22050)
+        y, got = audio_io.sf_read(os.path.join(ck, name))
+        assert got == 22050 and y.shape == stereo.shape, (name, y.shape)
+        assert np.abs(y - stereo).max() <= 1 / 32768, name
+    assert resample(y.mean(axis=1), 22050, 16000).shape == (8000,)
+    fl = os.path.join(ck, "flac_bg")
+    os.mkdir(fl)
+    for i, freq in enumerate((330.0, 550.0, 770.0)):
+        flac.write_flac(os.path.join(fl, f"{{i}}.flac"), np.sin(2 * np.pi * freq * t) * 0.5, sr)
+    fad = FrechetAudioDistance(model_name="vggish", weights="random", ckpt_dir=ck, device="cpu")
+    flac_score = fad.score(fl, ev)
+    assert flac_score != -1 and np.isfinite(flac_score) and flac_score > 0, flac_score
+    scores.append(flac_score)
     loaded = [m for m in sys.modules if any(m == b or m.startswith(b + ".") for b in BLOCKED)]
     assert not loaded, loaded
     print("JAX_FREE_OK", *scores)

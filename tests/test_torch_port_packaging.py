@@ -1,6 +1,7 @@
 """The port's packaging and API surface, on the CPU:
 - every header a CUDA source includes is shipped by pyproject.toml's
   package data, so an installed wheel can build the kernels;
+- the native host library's C++ source is shipped too;
 - the kernels' build directory follows FAD_TPU_TORCH_BUILD_DIR (the
   counterpart of the JAX package's FAD_TPU_NATIVE_DIR), else the package's
   _build/;
@@ -28,9 +29,9 @@ REPO_ROOT = Path(__file__).parent.parent
 PACKAGE = "frechet_audio_distance_exported_tpu_torch"
 
 
-def _package_data_globs():
+def _package_data_globs(package=PACKAGE):
     with open(REPO_ROOT / "pyproject.toml", "rb") as f:
-        return tomllib.load(f)["tool"]["setuptools"]["package-data"][PACKAGE]
+        return tomllib.load(f)["tool"]["setuptools"]["package-data"][package]
 
 
 def test_every_included_file_is_shipped():
@@ -54,6 +55,16 @@ def test_every_included_file_is_shipped():
             assert shipped(target), f'{src.name} includes "{name}", which is not shipped: {globs}'
             includes += 1
     assert includes >= 2  # vggish_logmel.cu and pann_logmel.cu include rfft.cuh
+
+
+def test_the_native_source_is_shipped():
+    """The host library's C++ source ships with the port's native package,
+    so an installed wheel builds it on first use."""
+    from frechet_audio_distance_exported_tpu_torch import native
+
+    globs = _package_data_globs(f"{PACKAGE}.native")
+    assert native.SOURCE.is_file()
+    assert any(fnmatch.fnmatch(native.SOURCE.name, g) for g in globs), globs
 
 
 def test_build_dir_follows_the_environment(monkeypatch, tmp_path):

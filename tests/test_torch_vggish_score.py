@@ -174,10 +174,19 @@ def test_preprocessing_errors_are_swallowed_unless_strict(fad):
 
 
 def test_other_containers_name_their_format(tmp_path):
+    """A container other than WAV loads as in the JAX package (FLAC here;
+    every container: tests/test_torch_codecs.py); an unknown one raises a
+    ValueError that names the formats the port reads."""
+    from frechet_audio_distance_exported_tpu_torch.utils import flac
+
     path = tmp_path / "x.flac"
-    path.write_bytes(b"fLaC" + bytes(64))
+    flac.write_flac(str(path), 0.5 * np.sin(np.arange(20000) / 9.0), 8000)
+    ours = audio_io.load_audio(str(path), SR, 1)
+    assert ours.shape == (40000,) and np.array_equal(ours, jax_io.load_audio(str(path), SR, 1))
+    unknown = tmp_path / "x.bin"
+    unknown.write_bytes(b"ABCD" + bytes(64))
     with pytest.raises(ValueError, match="FLAC"):
-        audio_io.load_audio(str(path), SR, 1)
+        audio_io.load_audio(str(unknown), SR, 1)
 
 
 def test_hooks_see_every_score(corpora):
