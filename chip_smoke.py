@@ -2,9 +2,10 @@
 
     python3 chip_smoke.py
 
-Builds the port's four CUDA kernels from the sources in this checkout and
-checks each against its plain torch version at its main path's shapes, at
-the CUDA file_batch of 64: the two log-mel kernels (each an in-block real
+Builds the port's CUDA kernels (four, and bf16 instances of the two Swin
+kernels) from the sources in this checkout and checks each against its
+plain torch version at its main path's shapes, at the CUDA file_batch of
+64: the two log-mel kernels (each an in-block real
 FFT on csrc/rfft.cuh), swin_block_fused at CLAP stages 1-3 (shifted and
 not) and window_attention_fused at stage 4 (LN1, then the qkv and proj
 3xTF32 GEMMs over token tiles around the per-window attention:
@@ -70,14 +71,33 @@ into the kernels:
     fallback at 44.1 -> 16 and 48 kHz, and the host preparation of one
     64-clip chunk on the resample path beside the 16 kHz int16 wire, in a
     {"host_runtime": ...} line.
-Each path runs with all four launch counts set to 0 just before it and read
+Last, the numerics modes (step 10), in a {"numerics": ...} line with its
+seconds:
+(a) the bf16 instances of both Swin kernels (csrc/window_attn_bf16.cu)
+    against their plain bf16 versions at every layer shape of a CLAP
+    forward at file_batch 64: the error in bf16 ulps of the output's
+    largest magnitude (at most 2) and the share of elements within one ulp
+    of their own (at least 0.9), times, bounds at the dense bf16 rate, and
+    the ptxas lines (no spill);
+(b) vggish, pann-16k, clap, encodec-24k (mixed) and encodec-48k (forced,
+    mixed) with FAD_TPU_MODEL_DTYPE=bfloat16 against float32 on the same
+    32 + 32 clips of 10 s: FAD deltas (held to 1e-3 absolute but for
+    encodec-48k, printed) and embedding errors; the bf16 CLAP run is the
+    bf16 kernels' path (10 and 2 launches a chunk, no float32 kernel);
+(c) encodec-24k with FAD_TPU_LSTM_MATMUL=bfloat16 against cuDNN's float32
+    LSTM: embedding error, forward and LSTM times (graphed and eager);
+(d) FAD_TPU_PRECISION=high (TF32) for VGGish and pann-16k: FAD deltas and
+    the model's time a chunk;
+(e) CLAP with FAD_TPU_FUSED_BLOCK=0: no swin_block_fused launch, 12
+    window_attention_fused a chunk, the score within 1e-6 relative.
+Each path runs with every launch count set to 0 just before it and read
 just after, so the counts show which kernels it went through: VGGish and
 PANN launch only their own log-mel kernel; CLAP launches the PANN log-mel
 kernel once per chunk, swin_block_fused exactly 10 times as often and
 window_attention_fused 2 times; Encodec launches none of the four. The
 `kernels` line gives each kernel's count on its main path (vggish,
-pann-16k, clap) and the PANN kernel's count on every path that runs it
-under "launches_by_path".
+pann-16k, clap; the bf16 Swin kernels: step 10's bf16 CLAP run) and the
+PANN kernel's count on every path that runs it under "launches_by_path".
 Any failure raises and the exit code is non-zero. It imports nothing of JAX.
 Its processes all end before it does.
 
@@ -85,7 +105,8 @@ The last line of standard output is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}};
 the line before it lists the kernels with their launch counts, errors,
 times per 64-clip chunk, bounds (with the peak rate each used:
-`bound_flops_per_s`) and arithmetic (`arith`: "fp32 fft" or "3xtf32 mma").
+`bound_flops_per_s`) and arithmetic (`arith`: "fp32 fft", "3xtf32 mma" or
+"bf16 mma.sync").
 Without CUDA, or outside a checkout of the repository, it exits non-zero and
 prints no result.
 """
@@ -120,6 +141,14 @@ DEVICE_STATS_RTOL = 1e-3
 # Swin kernels vs plain: float32 on both sides, outputs of order 1; only the
 # summation orders differ.
 SWIN_ATOL = 1e-4
+# bf16 Swin kernels vs their plain bf16 versions: both round at the same
+# points, so they differ where a float32 sum order moves a value across a
+# bf16 rounding boundary: at most this many bf16 ulps of the output's largest
+# magnitude, and at least this share of elements within one ulp of their own
+# (the plain versions against the JAX Pallas kernels on the CPU: <= 1 ulp,
+# 0.955-0.9998; tests/test_torch_precision.py).
+SWIN_BF16_ULPS = 2.0
+SWIN_BF16_WITHIN = 0.9
 CLAP_CLIPS = 16  # per corpus, 10 s at 48 kHz
 CLAP_LONG_SECONDS = 12.0  # past CLAP's 10 s: truncated to the 1001-frame read window
 # The peak rates of the H100 SXM: float32 outside the tensor cores; float32-
@@ -127,6 +156,7 @@ CLAP_LONG_SECONDS = 12.0  # past CLAP's 10 s: truncated to the 1001-frame read w
 # the three products of the split); and device memory.
 F32_FLOPS = 67e12
 TF32X3_FLOPS = 495e12 / 3
+BF16_FLOPS = 989e12  # dense bf16 on the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 FAD_DELTA = 1e-3  # card vs CPU plain path, absolute and relative
 ENCODEC_CLIPS = 8  # per corpus, 10 s each
@@ -139,6 +169,8 @@ CLI_RTOL = 1e-6  # the one-rank CLI's device_stats score vs the single-process o
 VGGISH_SCALE = 300.0  # random-weight VGGish rows are about 1e-3: x300 gives an O(1) FAD
 STEP_FILES = 64  # files a side in the sharded score step, 10 s each
 EPILOGUE_DIMS = (128, 512, 2048)  # VGGish / Encodec, CLAP, PANN widths
+NUMERICS_CLIPS = 32  # step 10: per side, 10 s each, at each family's rate
+FUSED_BLOCK_RTOL = 1e-6  # FAD_TPU_FUSED_BLOCK=0 vs the whole-block route, both 3xTF32
 HOST_SR = 44100  # step 9: the host runtime's corpora, stereo
 HOST_CLIPS = 32  # sines (background) and noise clips (eval), 10 s each; and a 16 kHz pair
 HOST_CPU_CLIPS = 8  # per side, the VGGish pair also scored on the CPU
@@ -162,7 +194,13 @@ def bound(flops: float, nbytes: float, flops_per_s: float = F32_FLOPS):
 
 
 def rate_name(flops_per_s: float) -> str:
-    return {F32_FLOPS: "67 TFLOP/s fp32", TF32X3_FLOPS: "165 TFLOP/s 3xTF32"}[flops_per_s]
+    return {F32_FLOPS: "67 TFLOP/s fp32", TF32X3_FLOPS: "165 TFLOP/s 3xTF32",
+            BF16_FLOPS: "989 TFLOP/s bf16"}[flops_per_s]
+
+
+def bf16_ulp(torch, v):
+    """The spacing of bf16 values at |v| (8 significant bits)."""
+    return torch.exp2(torch.floor(torch.log2(v.abs().clamp_min(1e-30))) - 7)
 
 
 def logmel_flops(np, frames: int, window: int, n_fft: int, mel, magnitude: bool) -> float:
@@ -451,21 +489,25 @@ def swin_layers(clap) -> dict:
     return layers
 
 
-def swin_kernel_phase(torch, np, window_attn, clap, batch: int) -> dict:
+def swin_kernel_phase(torch, np, window_attn, clap, batch: int, dtype=None) -> dict:
     """Both Swin kernels vs plain at every layer shape of one CLAP forward at
     B = the CUDA file_batch: swin_block_fused at stages 1-3 (shifted and not),
     window_attention_fused at stage 4. Inputs are scaled as in the tests
-    (x 0.5, weights 0.05, biases 0.01). Per kernel: the worst error, and the
-    time, plain time and bound of one 64-clip chunk (each shape's launch
-    times its launches per forward). The bound counts 24*M*C^2 + 4*M*64*C
-    flops for the block and 8*M*C^2 + 4*M*64*C for the attention half (M =
-    tokens) at the 3xTF32 rate (both kernels form every product so), and x,
-    out, the weights, bias and mask as bytes; the bound at the float32 SIMT
-    rate (67 TFLOP/s), which a kernel on FMA lanes would face, is printed
-    beside it."""
+    (x 0.5, weights 0.05, biases 0.01), and for a bf16 call (dtype) rounded to
+    bf16, the mask kept float32. Per kernel: the worst error (bf16: also in
+    bf16 ulps of the output's largest magnitude, and the share of elements
+    within one ulp of their own), and the time, plain time and bound of one
+    64-clip chunk (each shape's launch times its launches per forward). The
+    bound counts 24*M*C^2 + 4*M*64*C flops for the block and 8*M*C^2 +
+    4*M*64*C for the attention half (M = tokens) at the rate of the kernels'
+    products (float32: 3xTF32, with the float32 SIMT bound printed beside it;
+    bf16: the dense bf16 rate), and x, out, the weights, bias and mask as
+    bytes in their dtypes."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
     n = clap.WINDOW_SIZE ** 2
+    bf16 = dtype == torch.bfloat16
+    rate = BF16_FLOPS if bf16 else TF32X3_FLOPS
 
     def normal(shape, scale, offset=0.0):
         return torch.randn(shape, generator=gen, device=dev) * scale + offset
@@ -473,6 +515,10 @@ def swin_kernel_phase(torch, np, window_attn, clap, batch: int) -> dict:
     summary = {name: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
                       "bound_ms_fp32": 0.0, "flops": 0.0, "bytes": 0.0, "shapes": []}
                for name in ("swin_block_fused", "window_attention_fused")}
+    if bf16:
+        for row in summary.values():
+            row.update(max_err_ulps=0.0, within_one_ulp=1.0)
+            del row["bound_ms_fp32"]
     for (stage, shifted), layer in sorted(swin_layers(clap).items()):
         name, c, heads, nw = layer["kernel"], layer["c"], layer["heads"], layer["nw"]
         per_forward = layer["per_forward"]
@@ -490,14 +536,19 @@ def swin_kernel_phase(torch, np, window_attn, clap, batch: int) -> dict:
             args.update(gamma2=normal((c,), 0.1, 1.0), beta2=normal((c,), 0.1),
                         w_fc1=normal((c, 4 * c), 0.05), b_fc1=normal((4 * c,), 0.01),
                         w_fc2=normal((4 * c, c), 0.05), b_fc2=normal((c,), 0.01))
+        if bf16:
+            args = {k: v if k == "mask" else v.to(dtype).contiguous() for k, v in args.items()}
         kernel = getattr(window_attn, name)
         plain = getattr(window_attn, f"{name}_reference")
         out = kernel(**args, heads=heads, num_windows=nw)
         ref = plain(**args, heads=heads, num_windows=nw)
         torch.cuda.synchronize()
-        check(out.shape == ref.shape == args["x_windows"].shape, f"{name} shape {out.shape}")
-        check(bool(torch.isfinite(out).all()), f"{name} output not finite at stage {stage + 1}")
-        err = float((out - ref).abs().max())
+        label = f"{name}{'[bf16]' if bf16 else ''} stage {stage + 1}"
+        check(out.shape == ref.shape == args["x_windows"].shape and out.dtype == ref.dtype,
+              f"{label} shape {out.shape} {out.dtype}")
+        check(bool(torch.isfinite(out).all()), f"{label} output not finite")
+        diff = (out.float() - ref.float()).abs()
+        err = float(diff.max())
         kern_ms, plain_ms, runs = timed_pair(
             torch, lambda: kernel(**args, heads=heads, num_windows=nw),
             lambda: plain(**args, heads=heads, num_windows=nw), iters=10,
@@ -505,30 +556,50 @@ def swin_kernel_phase(torch, np, window_attn, clap, batch: int) -> dict:
         m = batch * nw * n
         c2 = 24 if name == "swin_block_fused" else 8
         flops = c2 * m * c * c + 4 * m * n * c
-        nbytes = 4 * (2 * args["x_windows"].numel()
-                      + sum(t.numel() for k, t in args.items() if k != "x_windows"))
-        bound_ms, bound_by = bound(flops, nbytes, TF32X3_FLOPS)
+        nbytes = (2 * args["x_windows"].numel() * args["x_windows"].element_size()
+                  + sum(t.numel() * t.element_size() for k, t in args.items() if k != "x_windows"))
+        bound_ms, bound_by = bound(flops, nbytes, rate)
         bound_ms_fp32 = bound(flops, nbytes)[0]
-        print(f"{name} stage {stage + 1} (C {c}, {heads} heads, nW {nw}, "
-              f"{'shifted' if shifted else 'unshifted'}) B={batch}: max_abs_err {err:.3e}, "
+        shape_row = {"stage": stage + 1, "C": c, "heads": heads, "shifted": shifted,
+                     "per_forward": per_forward, "ms": kern_ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "max_abs_err": err}
+        if bf16:
+            ref_f = ref.float()
+            ulps = err / float(bf16_ulp(torch, ref_f.abs().max()))
+            within = float((diff <= bf16_ulp(torch, ref_f)).float().mean())
+            shape_row.update(max_err_ulps=ulps, within_one_ulp=within)
+            accuracy = f"max_abs_err {err:.3e} = {ulps:.2f} ulps of the largest, {within:.4f} within one ulp"
+            rates = f"{bound_by} at {rate_name(rate)}"
+        else:
+            shape_row["bound_ms_fp32"] = bound_ms_fp32
+            accuracy = f"max_abs_err {err:.3e}"
+            rates = (f"{bound_by} at {rate_name(rate)}; {bound_ms_fp32:.4f} ms at "
+                     f"{rate_name(F32_FLOPS)}")
+        print(f"{name}{'[bf16]' if bf16 else ''} stage {stage + 1} (C {c}, {heads} heads, nW {nw}, "
+              f"{'shifted' if shifted else 'unshifted'}) B={batch}: {accuracy}, "
               f"kernel {kern_ms:.4f} ms ({runs[1]:.4f}, {runs[2]:.4f}) plain {plain_ms:.4f} ms "
-              f"({runs[0]:.4f}, {runs[3]:.4f}) bound {bound_ms:.4f} ms ({bound_by} at "
-              f"{rate_name(TF32X3_FLOPS)}; {bound_ms_fp32:.4f} ms at {rate_name(F32_FLOPS)}; "
+              f"({runs[0]:.4f}, {runs[3]:.4f}) bound {bound_ms:.4f} ms ({rates}; "
               f"{flops / 1e9:.2f} GFLOP, {flops / kern_ms / 1e9:.2f} TFLOP/s), "
               f"{per_forward} per forward")
-        check(err <= SWIN_ATOL, f"{name} vs plain at stage {stage + 1}: {err} > {SWIN_ATOL}")
+        if bf16:
+            check(ulps <= SWIN_BF16_ULPS and within >= SWIN_BF16_WITHIN,
+                  f"{label} vs plain: {ulps} ulps > {SWIN_BF16_ULPS} or {within} within one "
+                  f"ulp < {SWIN_BF16_WITHIN}")
+        else:
+            check(err <= SWIN_ATOL, f"{label} vs plain: {err} > {SWIN_ATOL}")
         row = summary[name]
         row["max_abs_err"] = max(row["max_abs_err"], err)
-        for key, value in (("ms", kern_ms), ("plain_ms", plain_ms), ("bound_ms", bound_ms),
-                           ("bound_ms_fp32", bound_ms_fp32), ("flops", flops), ("bytes", nbytes)):
-            row[key] += per_forward * value
-        row["shapes"].append({"stage": stage + 1, "C": c, "heads": heads, "shifted": shifted,
-                              "per_forward": per_forward, "ms": kern_ms, "plain_ms": plain_ms,
-                              "bound_ms": bound_ms, "bound_ms_fp32": bound_ms_fp32,
-                              "max_abs_err": err})
-        del args, out, ref
+        if bf16:
+            row["max_err_ulps"] = max(row["max_err_ulps"], ulps)
+            row["within_one_ulp"] = min(row["within_one_ulp"], within)
+        for key in ("ms", "plain_ms", "bound_ms") + (() if bf16 else ("bound_ms_fp32",)):
+            row[key] += per_forward * shape_row[key]
+        row["flops"] += per_forward * flops
+        row["bytes"] += per_forward * nbytes
+        row["shapes"].append(shape_row)
+        del args, out, ref, diff
     for row in summary.values():
-        row["bound_by"] = bound(row.pop("flops"), row.pop("bytes"), TF32X3_FLOPS)[1]
+        row["bound_by"] = bound(row.pop("flops"), row.pop("bytes"), rate)[1]
     return summary
 
 
@@ -1114,6 +1185,206 @@ def fad_of(fad, emb_bg, emb_ev) -> float:
                                                 *fad.calculate_embd_statistics(emb_ev)))
 
 
+def numerics_clips(np, sr: int, channels: int) -> tuple:
+    """NUMERICS_CLIPS sines (a second, different channel in stereo) and as
+    many noise clips, 10 s each at sr, float32 off the PCM16 grid."""
+    rng = np.random.default_rng(SEED + 7 + sr + channels)
+    t = np.arange(int(sr * CLIP_SECONDS)) / sr
+
+    def clip(freq=None):
+        if freq is None:
+            chans = [rng.standard_normal(t.size) * 0.1 for _ in range(channels)]
+        else:
+            chans = [0.5 * np.sin(2 * np.pi * freq * t) + 0.01 * rng.standard_normal(t.size),
+                     0.3 * np.sin(2 * np.pi * 1.5 * freq * t)][:channels]
+        x = chans[0] if channels == 1 else np.stack(chans, axis=1)
+        return x.astype(np.float32)
+
+    bg = [clip(110.0 * 2 ** (i / 7)) for i in range(NUMERICS_CLIPS)]
+    return bg, [clip() for _ in range(NUMERICS_CLIPS)]
+
+
+def with_env(name: str, value, fn):
+    """fn() with os.environ[name] = value (unset for None), restored after."""
+    saved = os.environ.get(name)
+    if value is None:
+        os.environ.pop(name, None)
+    else:
+        os.environ[name] = value
+    try:
+        return fn()
+    finally:
+        if saved is None:
+            os.environ.pop(name, None)
+        else:
+            os.environ[name] = saved
+
+
+def embedding_error(np, ours, ref) -> dict:
+    """Embedding rows of a reduced mode against float32: the largest error
+    relative to the largest float32 value, and the median error relative to
+    each value (values under 1e-3 of the largest excluded)."""
+    diff = np.abs(ours - ref)
+    scale = float(np.abs(ref).max())
+    big = np.abs(ref) > 1e-3 * scale
+    return {"max_rel": float(diff.max()) / scale,
+            "median_rel": float(np.median(diff[big] / np.abs(ref[big])))}
+
+
+def bf16_ptxas(build_log: str) -> list:
+    """(kernel, registers, spill line) of each bf16 kernel in the build log."""
+    rows, name = [], None
+    for line in build_log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1] if "window_attn_bf16" in line else None
+        elif name and "spill" in line and not any(r[0] == name for r in rows):
+            rows.append([name, None, line.strip()])
+        elif name and "Used" in line and "registers" in line:
+            for r in rows:
+                if r[0] == name:
+                    r[1] = line.split("Used")[1].split("registers")[0].strip()
+    return rows
+
+
+def numerics_phase(torch, np, calculator, launches, window_attn, clap, _build, apply_precision,
+                   single_clap: float, clap_pair, batch: int) -> dict:
+    """Step 10, the numerics modes. (a) Both bf16 Swin kernels against their
+    plain bf16 versions at every layer shape of a CLAP forward at B = batch,
+    and their ptxas lines. (b) Each family's embeddings and FAD in bf16
+    (FAD_TPU_MODEL_DTYPE=bfloat16; Encodec mixed, encodec-48k forced) against
+    float32 on the same NUMERICS_CLIPS a side, random weights from seed 0;
+    CLAP's bf16 run is the bf16 kernels' path (counts set to 0 just before,
+    read just after). (c) encodec-24k with FAD_TPU_LSTM_MATMUL=bfloat16
+    against cuDNN's float32 LSTM, and both forwards' times. (d)
+    FAD_TPU_PRECISION=high (TF32) for VGGish and pann-16k: FAD deltas and
+    the model's device time a chunk. (e) CLAP with FAD_TPU_FUSED_BLOCK=0:
+    no swin_block_fused launch, 12 window_attention_fused a chunk, the
+    score within 1e-6 relative of the default route's."""
+    out = {"kernels": swin_kernel_phase(torch, np, window_attn, clap, batch, torch.bfloat16)}
+    ptxas = bf16_ptxas(_build.library_path().with_suffix(".log").read_text())
+    for name, regs, spill in ptxas:
+        print(f"ptxas bf16: {name[:90]}: {regs} registers; {spill}")
+    check(len(ptxas) >= 7 and all(" 0 bytes spill stores, 0 bytes spill loads" in r[2]
+                                  for r in ptxas), f"bf16 kernels spill or are missing: {ptxas}")
+    out["ptxas"] = ptxas
+
+    # (b) bf16 against float32, family by family.
+    rates = {"vggish": (16000, 1), "pann-16k": (16000, 1), "clap": (48000, 1),
+             "encodec-24k": (24000, 1), "encodec-48k": (48000, 2)}
+    clips = {}
+    scores = {}
+    for model, (sr, channels) in rates.items():
+        if (sr, channels) not in clips:
+            clips[sr, channels] = numerics_clips(np, sr, channels)
+        bg, ev = clips[sr, channels]
+        row = {}
+        emb = {}
+        for mode in ("float32", "bfloat16"):
+            fad = with_env("FAD_TPU_MODEL_DTYPE", None if mode == "float32" else mode,
+                           lambda: calculator(model, channels=channels))
+            check(fad.pipeline.dtype == getattr(torch, mode), f"{model} {mode}: {fad.pipeline.dtype}")
+            t0 = time.perf_counter()
+            launches.zero()
+            emb[mode] = (fad.get_embeddings(bg, sr), fad.get_embeddings(ev, sr))
+            torch.cuda.synchronize()
+            counts = launches.read()
+            row[f"{mode}_s"] = time.perf_counter() - t0
+            row[mode] = fad_of(fad, *emb[mode])
+            if model == "clap" and mode == "bfloat16":
+                chunks = counts["fused_pann_logmel"]
+                check(chunks > 0 and counts["swin_block_fused[bf16]"] == 10 * chunks
+                      and counts["window_attention_fused[bf16]"] == 2 * chunks
+                      and counts["swin_block_fused"] == counts["window_attention_fused"] == 0,
+                      f"the bf16 CLAP path launched {counts}")
+                out["bf16_clap_launches"] = counts
+                print(f"clap bf16 path launches: {counts}")
+            del fad
+        check(all(np.isfinite(e).all() for e in emb["bfloat16"]), f"{model} bf16 not finite")
+        row.update(embedding_error(np, np.concatenate(emb["bfloat16"]), np.concatenate(emb["float32"])))
+        row["abs"] = abs(row["bfloat16"] - row["float32"])
+        row["rel"] = row["abs"] / abs(row["float32"])
+        held = model != "encodec-48k"
+        print(f"{model} bf16 vs float32 on {NUMERICS_CLIPS} + {NUMERICS_CLIPS} clips: FAD "
+              f"{row['bfloat16']!r} vs {row['float32']!r}, |delta| {row['abs']:.3e} absolute, "
+              f"{row['rel']:.3e} relative{'' if held else ' (printed, not held)'}; embeddings "
+              f"max {row['max_rel']:.3e} of the largest, median {row['median_rel']:.3e} relative; "
+              f"{row['float32_s']:.2f} s / {row['bfloat16_s']:.2f} s")
+        if held:
+            check(row["abs"] <= FAD_DELTA, f"{model} bf16 FAD delta {row['abs']} > {FAD_DELTA}")
+        scores[model] = row
+    out["scores"] = scores
+
+    # (c) encodec-24k with bf16 LSTM operands against cuDNN's float32 LSTM.
+    bg, _ = clips[24000, 1]
+    fad = calculator("encodec-24k")
+    ref = fad.get_embeddings(bg, 24000)
+    ours = with_env("FAD_TPU_LSTM_MATMUL", "bfloat16", lambda: fad.get_embeddings(bg, 24000))
+    lstm = {"embeddings": embedding_error(np, ours, ref)}
+    wave = torch.from_numpy(np.stack(bg + bg)[:, None, :]).cuda()  # one 64-clip chunk
+    seq = torch.randn((batch, fad.model.lstm.hidden_size, LSTM_STEPS[0]), device="cuda")
+    with torch.inference_mode():
+        for mode in ("float32", "bfloat16"):
+            lstm[f"forward_ms_{mode}"] = with_env(
+                "FAD_TPU_LSTM_MATMUL", mode, lambda: cuda_ms(torch, lambda: fad.model(wave), 3, 1))
+            lstm[f"lstm_ms_{mode}"] = with_env(
+                "FAD_TPU_LSTM_MATMUL", mode, lambda: cuda_ms(torch, lambda: fad.model.lstm(seq), 5, 1))
+        args = fad.model.lstm.bf16_operands(seq.transpose(1, 2).contiguous())
+        encodec_mod = sys.modules[type(fad.model).__module__]
+        lstm["lstm_ms_bfloat16_eager"] = cuda_ms(
+            torch, lambda: encodec_mod.recurrence_bf16_operands(*args), 1, 1)
+    print(f"encodec-24k LSTM bf16 operands vs cuDNN float32: embeddings max "
+          f"{lstm['embeddings']['max_rel']:.3e} of the largest, median "
+          f"{lstm['embeddings']['median_rel']:.3e}; forward of {batch} clips "
+          f"{lstm['forward_ms_float32']:.2f} ms (cuDNN) / {lstm['forward_ms_bfloat16']:.2f} ms "
+          f"(bf16 operands); LSTM alone at T={LSTM_STEPS[0]}: {lstm['lstm_ms_float32']:.2f} ms / "
+          f"{lstm['lstm_ms_bfloat16']:.2f} ms graphed ({lstm['lstm_ms_bfloat16_eager']:.2f} ms "
+          f"eager)")
+    out["lstm_bf16"] = lstm
+    del fad, wave, seq, args
+
+    # (d) FAD_TPU_PRECISION=high: TF32 for cuBLAS and cuDNN.
+    tf32 = {}
+    inputs = {"vggish": torch.randn((10 * batch, 96, 64), device="cuda") * 2.0 - 3.0,
+              "pann-16k": torch.randn((batch, 1032, 64), device="cuda") * 10.0 - 40.0}
+    for model in ("vggish", "pann-16k"):
+        bg, ev = clips[16000, 1]
+        row = {}
+        for mode in ("highest", "high"):
+            fad = with_env("FAD_TPU_PRECISION", mode, lambda: calculator(model))
+            check(torch.backends.cudnn.allow_tf32 is (mode == "high"), f"{mode}: cuDNN TF32 flag")
+            row[mode] = fad_of(fad, fad.get_embeddings(bg, 16000), fad.get_embeddings(ev, 16000))
+            with torch.inference_mode():
+                row[f"chunk_ms_{mode}"] = cuda_ms(torch, lambda: fad.pipeline.forward(inputs[model]), 5, 2)
+            del fad
+        apply_precision()
+        row["abs"] = abs(row["high"] - row["highest"])
+        row["rel"] = row["abs"] / abs(row["highest"])
+        print(f"{model} FAD_TPU_PRECISION=high vs highest: FAD {row['high']!r} vs "
+              f"{row['highest']!r}, |delta| {row['abs']:.3e} absolute, {row['rel']:.3e} relative; "
+              f"model {row['chunk_ms_highest']:.3f} ms -> {row['chunk_ms_high']:.3f} ms a chunk")
+        tf32[model] = row
+    check(torch.backends.cudnn.allow_tf32 is False and torch.backends.cuda.matmul.allow_tf32 is False,
+          "TF32 stayed on after FAD_TPU_PRECISION was unset")
+    out["tf32"] = tf32
+    del inputs
+
+    # (e) FAD_TPU_FUSED_BLOCK=0: stages 1-3 through the attention-only kernel.
+    fad = calculator("clap")
+    launches.zero()
+    score = with_env("FAD_TPU_FUSED_BLOCK", "0", lambda: fad.score(*clap_pair))
+    counts = launches.read()
+    chunks = counts["fused_pann_logmel"]
+    rel = abs(score - single_clap) / abs(single_clap)
+    print(f"clap FAD_TPU_FUSED_BLOCK=0: {score!r} vs {single_clap!r} (relative {rel:.3e}), "
+          f"launches {counts}")
+    check(chunks > 0 and counts["swin_block_fused"] == 0
+          and counts["window_attention_fused"] == 12 * chunks,
+          f"FAD_TPU_FUSED_BLOCK=0 launched {counts}")
+    check(rel <= FUSED_BLOCK_RTOL, f"FAD_TPU_FUSED_BLOCK=0 score {rel} > {FUSED_BLOCK_RTOL}")
+    out["fused_block_0"] = {"fad": score, "default": single_clap, "rel": rel, "launches": counts}
+    return out
+
+
 def host_runtime_phase(torch, np, tmp: Path, calculator, launches, smi: str,
                        batch: int) -> dict:
     """Step 9: the host runtime on the slice's path (decode a non-WAV file,
@@ -1307,7 +1578,7 @@ def main() -> int:
 
     import frechet_audio_distance_exported_tpu_torch as port
     from frechet_audio_distance_exported_tpu_torch import FrechetAudioDistance
-    from frechet_audio_distance_exported_tpu_torch.config import set_exact_float32
+    from frechet_audio_distance_exported_tpu_torch.config import apply_precision
     from frechet_audio_distance_exported_tpu_torch.models import clap
     from frechet_audio_distance_exported_tpu_torch.ops import _build, cuda_frontend, cuda_pann_frontend
     from frechet_audio_distance_exported_tpu_torch.ops import frontends as fe
@@ -1339,7 +1610,8 @@ def main() -> int:
 
     # 3. Each kernel against its plain version at its main path's shapes
     #    (exact float32 on both sides: TF32 off, as the public API sets it).
-    set_exact_float32()
+    check(apply_precision() == "highest", "FAD_TPU_PRECISION is set: the kernels' checks need "
+          "exact float32")
     batch = DEFAULT_FILE_BATCH["cuda"]
     vggish = vggish_kernel_phase(torch, np, cuda_frontend, fe, batch)
     pann = pann_kernel_phase(torch, np, cuda_pann_frontend, fe, batch)
@@ -1537,6 +1809,17 @@ def main() -> int:
         print(f"host runtime: step 9 took {host['seconds']:.1f} s")
         print(json.dumps({"host_runtime": host}))
 
+        # 10. The numerics modes: the bf16 Swin kernels against their plain
+        #     versions, each family in bf16 against float32, the bf16 LSTM
+        #     operands, TF32, and FAD_TPU_FUSED_BLOCK=0.
+        t0 = time.perf_counter()
+        numerics = numerics_phase(torch, np, calculator, launches, window_attn, clap, _build,
+                                  apply_precision, single_scores["clap"]["bg_ev"],
+                                  (clap_bg, clap_ev), batch)
+        numerics["seconds"] = time.perf_counter() - t0
+        print(f"numerics: step 10 took {numerics['seconds']:.1f} s")
+        print(json.dumps({"numerics": numerics}))
+
     print(json.dumps({"kernels": [
         {
             "name": "fused_vggish_logmel",
@@ -1591,6 +1874,30 @@ def main() -> int:
                 "bound_flops_per_s": TF32X3_FLOPS,
                 "at": "one 64-clip CLAP chunk: every launch of a forward",
                 "shapes": swin[name]["shapes"],
+            }
+            for name, line in (("swin_block_fused", 152), ("window_attention_fused", 217))
+        ),
+        *(
+            {
+                "name": f"{name}[bf16]",
+                "route": "cuda",
+                "source": "frechet_audio_distance_exported_tpu_torch/csrc/window_attn_bf16.cu",
+                "replaces": f"frechet_audio_distance_exported_tpu/ops/pallas_window_attn.py:{line}",
+                "launches": numerics["bf16_clap_launches"][f"{name}[bf16]"],
+                "launches_of": "step 10's bf16 CLAP path (FAD_TPU_MODEL_DTYPE=bfloat16)",
+                "max_abs_err": numerics["kernels"][name]["max_abs_err"],
+                "max_err_ulps": numerics["kernels"][name]["max_err_ulps"],
+                "within_one_ulp": numerics["kernels"][name]["within_one_ulp"],
+                "err_of": "block output vs the plain bf16 version; ulps of its largest magnitude",
+                "ms": numerics["kernels"][name]["ms"],
+                "plain_ms": numerics["kernels"][name]["plain_ms"],
+                "bound_ms": numerics["kernels"][name]["bound_ms"],
+                "bound_by": numerics["kernels"][name]["bound_by"],
+                "library_ms": None,
+                "arith": "bf16 mma.sync",
+                "bound_flops_per_s": BF16_FLOPS,
+                "at": "one 64-clip CLAP chunk: every launch of a forward",
+                "shapes": numerics["kernels"][name]["shapes"],
             }
             for name, line in (("swin_block_fused", 152), ("window_attention_fused", 217))
         ),

@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from . import registry
-from .config import exact_sqrtm, resolve_device, set_exact_float32
+from .config import apply_precision, exact_sqrtm, resolve_device
 from .models.clap import CLAP
 from .models.encodec import encodec_for_rate
 from .models.pann import PANN
@@ -132,7 +132,7 @@ class FrechetAudioDistance:
             device = mesh.device
             self.verbose = verbose and mesh.rank == 0
         self.device = resolve_device(device)
-        set_exact_float32()
+        apply_precision()
         if self.verbose:
             print(f"[FAD-TORCH] Using device: {self.device}")
 

@@ -21,10 +21,21 @@ weights stay [in, out], and only the patch-embed convolution is stored OIHW.
 The window layers go through ops/window_attn.py, as the JAX package
 dispatches them on a TPU (_swin_block L295-331): stages 1-3 through
 swin_block_fused, stage 4 (C = 768) through window_attention_fused with its
-MLP here in torch. The wrappers run the hand-written CUDA kernels for CUDA
-tensors and their plain versions for CPU tensors. LayerNorms outside the
-kernels are one-pass, (sum x, sum x^2) with the variance clamped at 0, like
-common.layer_norm (L132-148).
+MLP here in torch; with FAD_TPU_FUSED_BLOCK=0 (config.fused_block, read at
+each forward) every stage runs window_attention_fused and the MLP in torch
+(JAX L86-97, L310-312). The wrappers run the hand-written CUDA kernels for
+CUDA tensors and their plain versions for CPU tensors. LayerNorms outside
+the kernels are one-pass, (sum x, sum x^2) with the variance clamped at 0,
+like common.layer_norm (L132-148).
+
+In a bf16 model (pipeline.cast_model) the forward follows the JAX package's
+dtypes: the interpolation and bn0 run in float32 on the bf16 log-mel and
+re-enter the weights' dtype before the patch embedding (L389-393);
+LayerNorms take float32 moments and return x.dtype; products return
+x.dtype with float32 sums; the shift masks and the interpolation taps stay
+float32 while the gathered position bias follows the weights; the tail
+(final norm's output, token mean, projection, L2 norm) runs in float32
+(L404-417).
 
 Input:  [B, 1001, 64] log-mel (dB)
 Output: [B, 512] L2-normalized embeddings
@@ -39,6 +50,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .. import config
 from ..ops.window_attn import swin_block_fused, window_attention_fused
 
 EMBEDDING_SIZE = 512
@@ -139,11 +151,14 @@ def _shift_attn_mask(res: int, ws: int, shift: int) -> np.ndarray:
 
 
 def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: float = 1e-5):
-    """One-pass LayerNorm over the last axis (JAX models/common.py:132-148)."""
+    """One-pass LayerNorm over the last axis, in float32, returning x.dtype
+    (JAX models/common.py:132-148)."""
+    xf = x.to(torch.float32)
     n = x.shape[-1]
-    mean = x.sum(dim=-1, keepdim=True) / n
-    var = torch.clamp_min((x * x).sum(dim=-1, keepdim=True) / n - mean * mean, 0.0)
-    return (x - mean) * torch.rsqrt(var + eps) * gamma + beta
+    mean = xf.sum(dim=-1, keepdim=True) / n
+    var = torch.clamp_min((xf * xf).sum(dim=-1, keepdim=True) / n - mean * mean, 0.0)
+    out = (xf - mean) * torch.rsqrt(var + eps) * gamma.to(torch.float32) + beta.to(torch.float32)
+    return out.to(x.dtype)
 
 
 def _param(*shape) -> nn.Parameter:
@@ -163,7 +178,8 @@ class LayerNorm(nn.Module):
 
 
 class Dense(nn.Module):
-    """x @ w (+ b) with w [in, out], as JAX common.linear."""
+    """x @ w (+ b) with w [in, out], as JAX common.linear: in x.dtype (a
+    float32 x takes bf16 weights as float32, as the JAX package promotes)."""
 
     def __init__(self, din: int, dout: int, bias: bool = True):
         super().__init__()
@@ -171,7 +187,7 @@ class Dense(nn.Module):
         self.b = _param(dout) if bias else None
 
     def forward(self, x):
-        y = torch.matmul(x, self.w)
+        y = torch.matmul(x, self.w.to(x.dtype))
         return y if self.b is None else y + self.b
 
 
@@ -224,8 +240,9 @@ class SwinBlock(nn.Module):
         super().__init__()
         self.heads, self.res, self.shift = heads, res, shift
         self.num_windows = (res // WINDOW_SIZE) ** 2
-        # The whole block in swin_block_fused, or the attention half in
-        # window_attention_fused and the MLP here.
+        # Whether the width admits the whole block in swin_block_fused;
+        # otherwise (or under FAD_TPU_FUSED_BLOCK=0) the attention half runs
+        # in window_attention_fused and the MLP here.
         self.fused_block = dim <= FUSED_BLOCK_MAX_DIM
         self.norm1 = LayerNorm(dim)
         self.qkv = Dense(dim, 3 * dim)
@@ -260,6 +277,7 @@ class SwinBlock(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, l, c = x.shape
         res, shift = self.res, self.shift
+        whole_block = self.fused_block and config.fused_block()
         h = x.reshape(b, res, res, c)
         if shift:
             h = torch.roll(h, (-shift, -shift), dims=(1, 2))
@@ -268,7 +286,7 @@ class SwinBlock(nn.Module):
             windows, self.qkv.w, self.qkv.b, self.proj.w, self.proj.b, self.attn_bias,
             self.attn_mask, self.norm1.gamma, self.norm1.beta,
         )
-        if self.fused_block:
+        if whole_block:
             out = swin_block_fused(
                 *attention, self.norm2.gamma, self.norm2.beta, self.mlp.fc1.w, self.mlp.fc1.b,
                 self.mlp.fc2.w, self.mlp.fc2.b, heads=self.heads, num_windows=self.num_windows,
@@ -279,7 +297,7 @@ class SwinBlock(nn.Module):
         if shift:
             h = torch.roll(h, (shift, shift), dims=(1, 2))
         x = h.reshape(b, l, c)
-        if not self.fused_block:
+        if not whole_block:
             x = x + self.mlp(self.norm2(x))
         return x
 
@@ -371,11 +389,11 @@ class CLAP(nn.Module):
             taps = log_mel.index_select(1, self.interp_idx[:, k])
             term = self.interp_w[:, k][None, :, None] * taps
             x = term if x is None else x + term
-        x = self.bn0(x)
+        x = self.bn0(x).to(self.patch_embed.conv.w.dtype)
         x = x.reshape(b, FREQ_RATIO, TARGET_T // FREQ_RATIO, MEL_BINS).transpose(2, 3)
         x = self.patch_embed(x.reshape(b, SPEC_SIZE, SPEC_SIZE))
         for stage in self.stages:
             x = stage(x)
-        emb = self.norm(x).mean(dim=1)
+        emb = self.norm(x).to(torch.float32).mean(dim=1)
         emb = self.projection(emb)
         return emb / torch.clamp_min(torch.linalg.vector_norm(emb, dim=-1, keepdim=True), 1e-12)

@@ -14,9 +14,23 @@ weights); 48 kHz is stereo, centred, with GroupNorm(1, C) after every conv
 (JAX models/common.group_norm_full L100-129, as nn.GroupNorm).
 
 Every conv reflect-pads by Encodec's math.ceil-based amounts first
-(_pad_amounts). The JAX package's TPU choices (bf16 convolutions, bf16 LSTM
-operands, the fused two-layer scan) are not carried over: the LSTM is
-nn.LSTM in float32, which computes the same recurrence, gate order i, f, g, o.
+(_pad_amounts). The LSTM is nn.LSTM in float32 (cuDNN's on the card), which
+computes the same recurrence, gate order i, f, g, o.
+
+Mixed precision (JAX L232-260, pipeline.cast_model): in a bf16 model the
+input is cast to conv_in's dtype and each stage's input to its weights'
+dtype, so the convolution stages run in bf16 (GroupNorm at 48 kHz takes
+float32 moments inside and returns bf16), while the LSTM and conv_out keep
+float32 weights and the LSTM re-enters float32. FAD_TPU_LSTM_MATMUL=bfloat16
+(config.lstm_op_dtype, read at each forward) runs the recurrence as JAX
+_slstm(op_dtype=bfloat16) does (L100-183) instead of cuDNN's: layer 0's
+input projection hoisted, the carry, the gates and their sums in float32,
+only the in-scan recurrent operands rounded to bf16, and layer 1's input
+and recurrent products fused as [2H, 4H]. A product of two bf16 values is
+exact in float32, so the operands are rounded to bf16 and multiplied in
+float32 (TF32 keeps a bf16 value exact too). On the card the step loop is
+captured once per input shape in a CUDA graph and replayed: its 19
+small launches a step would otherwise be bound by the host.
 
 Input:  [B, C, S] float32 waveform, or PCM16-exact int16 (k/32768)
 Output: [B, T, 128] frame embeddings, T = ceil(S / 320)
@@ -29,6 +43,8 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from .. import config
 
 EMBEDDING_SIZE = 128
 N_FILTERS = 32
@@ -99,17 +115,92 @@ class Stage(nn.Module):
         return self.down(F.elu(self.res(x)))
 
 
+def _bf16_round(t: torch.Tensor) -> torch.Tensor:
+    """float32 rounded to bf16 (to nearest even) and back."""
+    return t.to(torch.bfloat16).to(torch.float32)
+
+
+def _lstm_cell(gates: torch.Tensor, c_prev: torch.Tensor):
+    """torch gate order i, f, g, o (JAX _lstm_cell L93-97), in six launches:
+    one sigmoid over all four gates (g's goes unused)."""
+    h = c_prev.shape[-1]
+    i, f, _, o = torch.sigmoid(gates).chunk(4, dim=-1)
+    c = torch.addcmul(f * c_prev, i, torch.tanh(gates[:, 2 * h : 3 * h]))
+    return o * torch.tanh(c), c
+
+
+def recurrence_bf16_operands(gx0, w0, w1, b1) -> torch.Tensor:
+    """The two layers' steps of JAX _slstm with op_dtype=bfloat16
+    (L158-183): gx0 [T, B, 4H] is layer 0's hoisted input projection with
+    both its biases, w0 [H, 4H] and w1 [2H, 4H] the bf16-rounded recurrent
+    and fused layer-1 weights, b1 = b_ih + b_hh of layer 1. Returns layer
+    1's outputs [B, T, H], float32."""
+    t, b, _ = gx0.shape
+    h = w0.shape[0]
+    zeros = torch.zeros((b, h), dtype=torch.float32, device=gx0.device)
+    h0, c0, h1, c1 = zeros, zeros, zeros, zeros
+    ys = []
+    for i in range(t):
+        h0, c0 = _lstm_cell(torch.addmm(gx0[i], _bf16_round(h0), w0), c0)
+        h1, c1 = _lstm_cell(torch.addmm(b1, _bf16_round(torch.cat([h0, h1], dim=-1)), w1), c1)
+        ys.append(h1)
+    return torch.stack(ys, dim=1)
+
+
 class SLSTM(nn.LSTM):
     """The 2-layer LSTM with the SEANet residual skip, on [B, C, T] (JAX
-    _slstm L102-183). Its state_dict is nn.LSTM's (weight_ih_l0, ...)."""
+    _slstm L102-183), in float32 whatever the input's dtype. Its state_dict
+    is nn.LSTM's (weight_ih_l0, ...)."""
 
     def __init__(self, dim: int = HIDDEN, num_layers: int = LSTM_LAYERS):
         super().__init__(dim, dim, num_layers=num_layers, batch_first=True)
+        # One CUDA graph of the bf16-operand step loop per input shape and
+        # device: (graph, its static inputs gx0, w0, w1, b1, its output).
+        self._graphs = {}
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        seq = x.transpose(1, 2)  # [B, T, C]
-        y, _ = super().forward(seq)
+        seq = x.transpose(1, 2).to(torch.float32)  # [B, T, C]
+        if config.lstm_op_dtype() == torch.float32:
+            y, _ = super().forward(seq)
+        else:
+            y = self.forward_bf16_operands(seq)
         return (y + seq).transpose(1, 2)
+
+    def bf16_operands(self, seq: torch.Tensor) -> tuple:
+        """(gx0, w0, w1, b1) of recurrence_bf16_operands for seq [B, T, H]:
+        layer 0's input projection, time-major, takes both of its biases
+        (JAX adds b_hh inside the step: the same sum, in another order)."""
+        b, t, h = seq.shape
+        gx0 = torch.addmm(self.bias_ih_l0 + self.bias_hh_l0, seq.transpose(0, 1).reshape(t * b, h),
+                          self.weight_ih_l0.t())
+        w0 = _bf16_round(self.weight_hh_l0).t().contiguous()  # [H, 4H]
+        w1 = _bf16_round(torch.cat([self.weight_ih_l1, self.weight_hh_l1], dim=1)).t().contiguous()
+        return gx0.reshape(t, b, 4 * h), w0, w1, self.bias_ih_l1 + self.bias_hh_l1
+
+    @torch.inference_mode()
+    def forward_bf16_operands(self, seq: torch.Tensor) -> torch.Tensor:
+        """Layer 1's outputs [B, T, H] with bf16 recurrent operands: eagerly on
+        the CPU, by replaying the CUDA graph of this shape on the card."""
+        args = self.bf16_operands(seq)
+        if not seq.is_cuda:
+            return recurrence_bf16_operands(*args)
+        key = (tuple(seq.shape), seq.device)
+        if key not in self._graphs:
+            static = [a.clone() for a in args]
+            side = torch.cuda.Stream(seq.device)
+            side.wait_stream(torch.cuda.current_stream(seq.device))
+            with torch.cuda.stream(side):  # warm-up before the capture, as CUDA graphs need
+                recurrence_bf16_operands(*static)
+            torch.cuda.current_stream(seq.device).wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                out = recurrence_bf16_operands(*static)
+            self._graphs[key] = (graph, static, out)
+        graph, static, out = self._graphs[key]
+        for dst, src in zip(static, args):
+            dst.copy_(src)
+        graph.replay()
+        return out.clone()
 
 
 class Encodec(nn.Module):
@@ -133,10 +224,11 @@ class Encodec(nn.Module):
             raise ValueError(f"expected a [B, {self.channels}, S] waveform, got {tuple(x.shape)}")
         if x.dtype == torch.int16:
             x = x.to(torch.float32) / 32768.0  # JAX L232-233: not CLAP's 32767
-        h = self.conv_in(x)
+        h = self.conv_in(x.to(self.conv_in.conv.weight.dtype))
         for stage in self.stages:
-            h = stage(h)
-        h = self.conv_out(F.elu(self.lstm(h)))
+            # Each stage runs in its weights' dtype (JAX L250-254).
+            h = stage(h.to(stage.res.conv1.conv.weight.dtype))
+        h = self.conv_out(F.elu(self.lstm(h)))  # the LSTM returns float32
         return h.transpose(1, 2)  # [B, T, 128]
 
 

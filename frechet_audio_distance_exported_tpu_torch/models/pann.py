@@ -14,7 +14,9 @@ semantics (common.py:79).
 - fc1 followed by ReLU.
 
 The same weights serve all three sample-rate variants; only the frontend
-differs.
+differs. In a bf16 model (pipeline.cast_model) the convolutions, batch norms
+and fc1 take bf16 and return bf16 with float32 sums inside, and the pooling
+tail runs in float32 (JAX L82-89).
 
 Input:  [B, T, 64] log-mel (T on the 32k-24 grid, zero rows included: they
         are part of the reference numerics, see frontends.pann_valid_time)
@@ -77,7 +79,8 @@ class PANN(nn.Module):
         for i, block in enumerate(self.blocks):
             h = block(h, pool=i != last)
         # [B, C, T/32, 2]: mean over frequency, then max + mean over time
-        # (JAX models/pann.py:85-87, axes 2 and 1 of NHWC). Float32 already.
-        h = h.mean(dim=3)
-        h = h.amax(dim=2) + h.mean(dim=2)
+        # (JAX models/pann.py:85-87, axes 2 and 1 of NHWC), in float32 in any
+        # compute dtype: the time mean runs over up to some 8k pooled frames.
+        h = h.to(torch.float32).mean(dim=3)
+        h = (h.amax(dim=2) + h.mean(dim=2)).to(x.dtype)
         return F.relu(self.fc1(h))

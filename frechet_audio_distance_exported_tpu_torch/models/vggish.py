@@ -6,6 +6,12 @@ padding 1 (equal to SAME at stride 1) + ReLU and 2x2/2 max pools, a
 channel-last flatten, then FC 12288 -> 4096 -> ReLU -> 4096 -> ReLU -> 128
 with no final ReLU.
 
+In a bf16 model (pipeline.cast_model) every convolution and linear layer
+takes bf16 and returns bf16 with float32 sums inside, as JAX common.conv2d
+and common.linear do (L29-66, L151-154); the bias is added before the one
+rounding, where JAX rounds the product and then adds it (a bf16 ulp apart
+at most; tests/test_torch_precision.py measures it).
+
 Input:  [B, 96, 64] log-mel patches (ops.frontends.vggish_patches_batch)
 Output: [B, 128] embeddings
 """

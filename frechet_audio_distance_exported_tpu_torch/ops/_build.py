@@ -164,7 +164,7 @@ def load_library() -> ctypes.CDLL:
         ctypes.c_void_p,  # cudaStream_t
     ]
     lib.window_attention_launch.restype = ctypes.c_int
-    lib.swin_block_launch.argtypes = [
+    block_args = [
         *attention_args,
         ctypes.c_void_p,  # gamma2
         ctypes.c_void_p,  # beta2
@@ -179,5 +179,11 @@ def load_library() -> ctypes.CDLL:
         ctypes.c_int,  # heads
         ctypes.c_void_p,  # cudaStream_t
     ]
+    lib.swin_block_launch.argtypes = block_args
     lib.swin_block_launch.restype = ctypes.c_int
+    # The bf16 instances (csrc/window_attn_bf16.cu) take the same arguments.
+    for name in ("window_attention", "swin_block"):
+        entry = getattr(lib, f"{name}_bf16_launch")
+        entry.argtypes = getattr(lib, f"{name}_launch").argtypes
+        entry.restype = ctypes.c_int
     return lib

@@ -21,6 +21,12 @@ shapes (VGGish callers mask whole patches, PANN masks rows in the kernel).
 A CUDA tensor goes to a hand-written log-mel kernel, a CPU tensor to its
 plain torch version (ops/cuda_frontend.py and ops/cuda_pann_frontend.py
 decide, by the tensor's device).
+
+The reference-compatible single-file helpers at the end (waveform_to_examples,
+waveform_to_logmel, preprocess_for_clap, clap_quantize, the padding helpers)
+take NumPy audio, as the JAX package's do (ops/frontends.py:339-534); those
+that compute a log-mel take a ``device`` ("cuda" by default, which raises
+without CUDA) and run the log-mel kernels there.
 """
 
 from __future__ import annotations
@@ -52,7 +58,8 @@ PANN_CONFIGS = {
 
 # CLAP constants (JAX ops/frontends.py L57-61).
 CLAP_SAMPLE_RATE = 48000
-CLAP_MAX_SAMPLES = 10 * CLAP_SAMPLE_RATE  # 480000
+CLAP_MAX_AUDIO_SECONDS = 10
+CLAP_MAX_SAMPLES = CLAP_MAX_AUDIO_SECONDS * CLAP_SAMPLE_RATE  # 480000
 CLAP_TIME_FRAMES = 1001
 
 # Encodec constants (JAX ops/frontends.py L62-80).
@@ -247,4 +254,115 @@ def pad_to_fixed_length(x, target_sample_rate: int):
             x = torch.nn.functional.pad(x, (0, max_samples - samples))
         else:
             x = np.pad(x, [(0, 0)] * (x.ndim - 1) + [(0, max_samples - samples)])
+    return x
+
+
+# ---------------------------------------------------------------------------
+# Reference-compatible single-file helpers (NumPy in, NumPy or torch out)
+# ---------------------------------------------------------------------------
+
+
+def clap_quantize(audio) -> torch.Tensor:
+    """The int16 round trip CLAP was trained with, on a float tensor (or
+    array): NumPy's float -> int16 cast, which truncates toward zero and wraps
+    values past full scale modulo 2^16 (copied from
+    frechet_audio_distance_exported_tpu/ops/frontends.py:339-350)."""
+    x = torch.as_tensor(audio, dtype=torch.float32)
+    q = (x * 32767.0).to(torch.int32)
+    q = ((q + 32768) % 65536) - 32768
+    return q.to(torch.float32) / 32767.0
+
+
+def waveform_to_examples(data: np.ndarray, sample_rate: int, return_tensor: bool = True,
+                         device="cuda"):
+    """VGGish: waveform -> [N, 96, 64] log-mel patches (JAX
+    ops/frontends.py:372-393). The log-mel runs on ``device``.
+
+    return_tensor=True returns a torch tensor [N, 1, 96, 64] on the device;
+    else a NumPy [N, 96, 64] array."""
+    from ..config import resolve_device
+
+    dev = resolve_device(device)
+    data = np.asarray(data)
+    if data.ndim > 1:
+        data = np.mean(data, axis=1)
+    if sample_rate != VGGISH_SAMPLE_RATE:
+        data = resample(data, sample_rate, VGGISH_SAMPLE_RATE)
+    num_patches = vggish_num_patches(len(data))
+    if num_patches == 0:
+        out = torch.zeros((0, VGGISH_PATCH_FRAMES, VGGISH_MEL_BINS), device=dev)
+    else:
+        need = VGGISH_WINDOW + (num_patches * VGGISH_PATCH_FRAMES - 1) * VGGISH_HOP
+        wave = torch.from_numpy(np.ascontiguousarray(data[:need], dtype=np.float32))
+        out = vggish_patches_batch(wave[None, :].to(dev), num_patches)[0]
+    if return_tensor:
+        return out[:, None, :, :]
+    return out.cpu().numpy()
+
+
+def waveform_to_logmel(audio: np.ndarray, sample_rate: int, target_sample_rate: int = 16000,
+                       return_tensor: bool = True, device="cuda"):
+    """PANN: waveform -> Slaney log-mel (JAX ops/frontends.py:396-420). The
+    log-mel runs on ``device``.
+
+    return_tensor=True returns a torch tensor [1, 1, T, 64] on the device;
+    else a NumPy [T, 64] array."""
+    from ..config import resolve_device
+
+    if target_sample_rate not in PANN_CONFIGS:
+        raise ValueError(f"target_sample_rate must be one of {list(PANN_CONFIGS.keys())}")
+    dev = resolve_device(device)
+    cfg = PANN_CONFIGS[target_sample_rate]
+    audio = np.asarray(audio)
+    if audio.ndim > 1:
+        audio = np.mean(audio, axis=1)
+    if sample_rate != target_sample_rate:
+        audio = resample(audio, sample_rate, target_sample_rate)
+    audio = audio.astype(np.float32)
+    num_frames = pann_num_frames(len(audio), cfg["hop_size"])
+    padded = torch.from_numpy(reflect_pad_host(audio, cfg["window_size"]))[None, :].to(dev)
+    n_valid = torch.full((1,), num_frames, dtype=torch.int32, device=dev)
+    log_mel = pann_logmel_batch(padded, target_sample_rate, num_frames, n_valid)
+    if return_tensor:
+        return log_mel[:, None, :, :]
+    return log_mel[0].cpu().numpy()
+
+
+def preprocess_for_clap(audio: np.ndarray, sample_rate: int, return_tensor: bool = True,
+                        apply_quantization: bool = True, device="cuda"):
+    """CLAP: mono mix -> int16 quantisation -> 48 kHz log-mel (JAX
+    ops/frontends.py:423-439)."""
+    audio = np.asarray(audio)
+    if audio.ndim > 1:
+        audio = np.mean(audio, axis=1)
+    if apply_quantization:
+        audio = audio.astype(np.float32)
+        audio = (audio * 32767.0).astype(np.int16).astype(np.float32) / 32767.0
+    return waveform_to_logmel(audio, sample_rate, target_sample_rate=CLAP_SAMPLE_RATE,
+                              return_tensor=return_tensor, device=device)
+
+
+# Copied from frechet_audio_distance_exported_tpu/ops/frontends.py:442.
+def pad_audio_to_max_length(audio: np.ndarray, sample_rate: int) -> np.ndarray:
+    """Zero-pad a waveform to 10 s; raise beyond."""
+    max_samples = CLAP_MAX_AUDIO_SECONDS * sample_rate
+    if len(audio) > max_samples:
+        raise ValueError(
+            f"Audio too long: {len(audio) / sample_rate:.2f}s > {CLAP_MAX_AUDIO_SECONDS}s max"
+        )
+    if len(audio) < max_samples:
+        audio = np.pad(audio, (0, max_samples - len(audio)), mode="constant")
+    return audio
+
+
+def pad_to_valid_encodec_length(x):
+    """Zero-pad a [..., S] waveform (NumPy or torch) to a multiple of the hop
+    320 (JAX ops/frontends.py:525-534; deprecated in the reference too)."""
+    hop_length = 320
+    remainder = x.shape[-1] % hop_length
+    if remainder != 0:
+        if isinstance(x, torch.Tensor):
+            x = torch.nn.functional.pad(x, (0, hop_length - remainder))
+        else:
+            x = np.pad(x, [(0, 0)] * (x.ndim - 1) + [(0, hop_length - remainder)])
     return x

@@ -1,4 +1,5 @@
-"""Kernel launch counts of this process, one key per CUDA kernel wrapper.
+"""Kernel launch counts of this process, one key per CUDA kernel wrapper and
+dtype (the bf16 instances of the Swin kernels count as "<name>[bf16]").
 
 A wrapper adds one to its own key where it launches its kernel, and nowhere
 else: a call that goes to the plain version does not count, and a wrapper
@@ -13,6 +14,8 @@ LAUNCHES = {
     "fused_pann_logmel": 0,
     "swin_block_fused": 0,
     "window_attention_fused": 0,
+    "swin_block_fused[bf16]": 0,
+    "window_attention_fused[bf16]": 0,
 }
 
 

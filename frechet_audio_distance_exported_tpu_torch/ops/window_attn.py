@@ -20,9 +20,23 @@ with the same layout contract (one layer over partitioned 8x8 windows):
 attn is softmax(q k^T * hd^-1/2 + bias[h] + mask) v per head, with head
 columns h*hd .. h*hd + hd - 1 of q, k and v; LayerNorm is two-pass with eps
 1e-5, GELU the exact erf form. A CPU tensor goes to the plain torch version
-(*_reference); a CUDA tensor goes to csrc/window_attn.cu (its header says
-what bounds it and how it is laid out) or raises. There is no fallback from
-one to the other, and no TPU tile argument (`group`).
+(*_reference); a CUDA tensor goes to csrc/window_attn.cu (float32) or
+csrc/window_attn_bf16.cu (bfloat16), whose headers say what bounds them and
+how they are laid out, or raises. There is no fallback from one to the
+other, and no TPU tile argument (`group`).
+
+A call is float32 throughout, or bfloat16 throughout but for a float32
+mask: then the kernels compute what the Pallas kernels compute for a bf16
+x (_attention_half L35-83, _block_kernel L114-146). Products take bf16
+operands with float32 sums, LayerNorm, softmax and GELU run in float32, and
+the values are rounded to bf16 where the Pallas kernels round them: LN1's
+output, qkv after its bias, the softmax probabilities, each head's p v, the
+attention residual x2 (LN2's moments are taken over the rounded x2), LN2's
+output, GELU's output and the block's output. The plain versions round at
+the same points, with every product formed in float32 on the bf16 operands
+(exact, so they differ from JAX's preferred_element_type=float32 only in
+summation order). The launch counts of the bf16 kernels are kept under
+their own keys, "swin_block_fused[bf16]" and "window_attention_fused[bf16]".
 """
 
 from __future__ import annotations
@@ -56,17 +70,30 @@ def _layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor) -> tor
     return centered * torch.rsqrt(var + LN_EPS) * gamma + beta
 
 
+def _rounding(dtype: torch.dtype):
+    """The plain versions' rounding points: identity for a float32 call, a
+    round trip through bf16 for a bfloat16 one."""
+    if dtype == torch.float32:
+        return lambda t: t
+    return lambda t: t.to(dtype).to(torch.float32)
+
+
 def _attention_half_reference(x, w_qkv, b_qkv, w_proj, b_proj, bias, mask, gamma1, beta1, heads):
+    """The attention residual x + proj(attn(LN1(x))) in float32, from
+    operands of x.dtype, rounded where the Pallas kernel rounds."""
+    rnd = _rounding(x.dtype)
+    x, w_qkv, b_qkv, w_proj, b_proj, bias, gamma1, beta1 = (
+        t.to(torch.float32) for t in (x, w_qkv, b_qkv, w_proj, b_proj, bias, gamma1, beta1))
     bw, n, c = x.shape
     hd = c // heads
-    h = _layer_norm(x, gamma1, beta1)
-    qkv = torch.matmul(h, w_qkv) + b_qkv
+    h = rnd(_layer_norm(x, gamma1, beta1))
+    qkv = rnd(torch.matmul(h, w_qkv) + b_qkv)
     q, k, v = qkv.reshape(bw, n, 3, heads, hd).permute(2, 0, 3, 1, 4)  # each [BW, H, N, hd]
     logits = torch.matmul(q, k.transpose(-1, -2)) * (hd ** -0.5) + bias
     nw = mask.shape[0]
     logits = logits.reshape(bw // nw, nw, heads, n, n) + mask[None, :, None]
     logits = logits.reshape(bw, heads, n, n)
-    attn = torch.matmul(torch.softmax(logits, dim=-1), v)
+    attn = rnd(torch.matmul(rnd(torch.softmax(logits, dim=-1)), v))
     attn = attn.transpose(1, 2).reshape(bw, n, c)
     return x + (torch.matmul(attn, w_proj) + b_proj)
 
@@ -74,46 +101,52 @@ def _attention_half_reference(x, w_qkv, b_qkv, w_proj, b_proj, bias, mask, gamma
 def window_attention_fused_reference(
     x_windows, w_qkv, b_qkv, w_proj, b_proj, bias, mask, gamma1, beta1, heads, num_windows
 ):
-    """Plain torch version of window_attention_fused."""
+    """Plain torch version of window_attention_fused (float32 or bf16)."""
     del num_windows  # the mask's first axis carries it
     return _attention_half_reference(
         x_windows, w_qkv, b_qkv, w_proj, b_proj, bias, mask, gamma1, beta1, heads
-    )
+    ).to(x_windows.dtype)
 
 
 def swin_block_fused_reference(
     x_windows, w_qkv, b_qkv, w_proj, b_proj, bias, mask, gamma1, beta1,
     gamma2, beta2, w_fc1, b_fc1, w_fc2, b_fc2, heads, num_windows,
 ):
-    """Plain torch version of swin_block_fused."""
+    """Plain torch version of swin_block_fused (float32 or bf16)."""
     del num_windows
-    x2 = _attention_half_reference(
+    rnd = _rounding(x_windows.dtype)
+    x2 = rnd(_attention_half_reference(
         x_windows, w_qkv, b_qkv, w_proj, b_proj, bias, mask, gamma1, beta1, heads
-    )
-    hidden = F.gelu(torch.matmul(_layer_norm(x2, gamma2, beta2), w_fc1) + b_fc1)
-    return x2 + (torch.matmul(hidden, w_fc2) + b_fc2)
+    ))
+    gamma2, beta2, w_fc1, b_fc1, w_fc2, b_fc2 = (
+        t.to(torch.float32) for t in (gamma2, beta2, w_fc1, b_fc1, w_fc2, b_fc2))
+    h2 = rnd(_layer_norm(x2, gamma2, beta2))
+    hidden = rnd(F.gelu(torch.matmul(h2, w_fc1) + b_fc1))
+    return (x2 + (torch.matmul(hidden, w_fc2) + b_fc2)).to(x_windows.dtype)
 
 
-def attention_scratch(bw: int, c: int, device) -> dict:
+def attention_scratch(bw: int, c: int, device, dtype: torch.dtype = torch.float32) -> dict:
     """The device scratch of window_attention_fused's kernels, allocated per
-    call: a [M, C] (LN1(x), then attn) and qkv [M, 3C], M = BW * 64 tokens."""
+    call in the call's dtype: a [M, C] (LN1(x), then attn) and qkv [M, 3C],
+    M = BW * 64 tokens."""
     m = bw * KERNEL_TOKENS
-    f32 = dict(dtype=torch.float32, device=device)
-    return {"a": torch.empty((m, c), **f32), "qkv": torch.empty((m, 3 * c), **f32)}
+    kind = dict(dtype=dtype, device=device)
+    return {"a": torch.empty((m, c), **kind), "qkv": torch.empty((m, 3 * c), **kind)}
 
 
-def _check_scratch(scratch: dict, bw: int, c: int, device) -> None:
-    """Raises unless scratch holds what attention_scratch(bw, c, device)
-    allocates: float32, contiguous, 16-byte aligned tensors of its shapes."""
+def _check_scratch(scratch: dict, bw: int, c: int, device,
+                   dtype: torch.dtype = torch.float32) -> None:
+    """Raises unless scratch holds what attention_scratch(bw, c, device,
+    dtype) allocates: contiguous, 16-byte aligned tensors of its shapes."""
     m = bw * KERNEL_TOKENS
     expected = {"a": (m, c), "qkv": (m, 3 * c)}
     if set(scratch) != set(expected):
         raise ValueError(f"window_attention_fused scratch must be {sorted(expected)}, "
                          f"got {sorted(scratch)}")
     for key, t in scratch.items():
-        if t.dtype != torch.float32 or t.device != torch.device(device):
-            raise ValueError(
-                f"scratch {key} must be float32 on {device}, got {t.dtype} on {t.device}")
+        if t.dtype != dtype or t.device != torch.device(device):
+            raise ValueError(f"scratch {key} must be {str(dtype).removeprefix('torch.')} on "
+                             f"{device}, got {t.dtype} on {t.device}")
         if tuple(t.shape) != expected[key]:
             raise ValueError(f"scratch {key} must be {expected[key]}, got {tuple(t.shape)}")
         if not t.is_contiguous() or t.data_ptr() % KERNEL_ALIGN:
@@ -140,9 +173,14 @@ def _check(name: str, x: torch.Tensor, heads: int, num_windows: int, operands: d
         "gamma2": (c,), "beta2": (c,), "w_fc1": (c, 4 * c), "b_fc1": (4 * c,),
         "w_fc2": (4 * c, c), "b_fc2": (c,),
     }
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name} takes float32 or bfloat16 x_windows, got {x.dtype}")
     for key, t in {"x_windows": x, **operands}.items():
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} takes float32, got {t.dtype} for {key}")
+        # One dtype for every operand, but a float32 mask in a bfloat16 call.
+        want = torch.float32 if key == "mask" else x.dtype
+        if t.dtype != want:
+            raise TypeError(f"{name} takes {want} for {key} in a call on {x.dtype} "
+                            f"x_windows, got {t.dtype}")
         if t.device != x.device:
             raise ValueError(f"{name}: {key} is on {t.device}, x_windows on {x.device}")
         if key in expected and tuple(t.shape) != expected[key]:
@@ -197,7 +235,7 @@ def _run(name: str, x: torch.Tensor, operands: dict, heads: int, num_windows: in
         err = launch(lib, out, stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed with cudaError {err}")
-    launches.count(name)
+    launches.count(name if x.dtype == torch.float32 else f"{name}[bf16]")
     return out
 
 
@@ -206,28 +244,33 @@ def window_attention_fused(
     num_windows: int,
 ) -> torch.Tensor:
     """x + proj(attn(LN1(x))) over partitioned windows (layout in the module
-    docstring). CPU tensor: the plain version. CUDA tensor: the kernel."""
+    docstring). CPU tensor: the plain version. CUDA tensor: the kernels
+    (float32 or bf16, by x_windows' dtype)."""
     operands = dict(w_qkv=w_qkv, b_qkv=b_qkv, w_proj=w_proj, b_proj=b_proj, bias=bias,
                     mask=mask, gamma1=gamma1, beta1=beta1)
 
     def launch(lib, out, stream):
         bw, _, c = x_windows.shape
         return launch_attention(lib, x_windows, operands, heads,
-                                attention_scratch(bw, c, x_windows.device), out, stream)
+                                attention_scratch(bw, c, x_windows.device, x_windows.dtype),
+                                out, stream)
 
     return _run("window_attention_fused", x_windows, operands, heads, num_windows,
                 window_attention_fused_reference, launch)
 
 
 def launch_attention(lib, x, operands: dict, heads: int, scratch: dict, out, stream) -> int:
-    """Queue window_attention_fused's kernels on stream, with the given
-    scratch (checked: attention_scratch's shapes, 16-byte aligned); returns
-    the cudaError code. The wrapper's launch; a card test calls it with its
-    own scratch to read the intermediates back."""
+    """Queue window_attention_fused's kernels (float32 or bf16, by x's dtype)
+    on stream, with the given scratch (checked: attention_scratch's shapes
+    and dtype, 16-byte aligned); returns the cudaError code. The wrapper's
+    launch; a card test calls it with its own scratch to read the
+    intermediates back."""
     bw, _, c = x.shape
-    _check_scratch(scratch, bw, c, x.device)
+    _check_scratch(scratch, bw, c, x.device, x.dtype)
     o = operands
-    return lib.window_attention_launch(
+    entry = (lib.window_attention_launch if x.dtype == torch.float32
+             else lib.window_attention_bf16_launch)
+    return entry(
         *_ptrs(x, o["w_qkv"], o["b_qkv"], o["w_proj"], o["b_proj"], o["bias"], o["mask"]),
         o["mask"].shape[0],
         *_ptrs(o["gamma1"], o["beta1"], scratch["a"], scratch["qkv"], out),
@@ -241,7 +284,8 @@ def swin_block_fused(
 ) -> torch.Tensor:
     """Whole pre-norm Swin block over partitioned windows:
     x2 = x + proj(attn(LN1(x))); out = x2 + fc2(GELU(fc1(LN2(x2)))).
-    CPU tensor: the plain version. CUDA tensor: the kernel."""
+    CPU tensor: the plain version. CUDA tensor: the kernel (float32 or bf16,
+    by x_windows' dtype)."""
     operands = dict(w_qkv=w_qkv, b_qkv=b_qkv, w_proj=w_proj, b_proj=b_proj, bias=bias,
                     mask=mask, gamma1=gamma1, beta1=beta1, gamma2=gamma2, beta2=beta2,
                     w_fc1=w_fc1, b_fc1=b_fc1, w_fc2=w_fc2, b_fc2=b_fc2)
@@ -249,7 +293,9 @@ def swin_block_fused(
     def launch(lib, out, stream):
         bw, _, c = x_windows.shape
         attn = torch.empty_like(x_windows)
-        return lib.swin_block_launch(
+        entry = (lib.swin_block_launch if x_windows.dtype == torch.float32
+                 else lib.swin_block_bf16_launch)
+        return entry(
             *_ptrs(x_windows, w_qkv, b_qkv, w_proj, b_proj, bias, mask), mask.shape[0],
             *_ptrs(gamma1, beta1, gamma2, beta2, w_fc1, b_fc1, w_fc2, b_fc2, attn, out),
             bw, c, heads, stream,

@@ -25,6 +25,11 @@ Row order of the concatenated embedding matrix is files in input order,
 patches in time order within a file. Under a mesh (set_mesh) each rank
 embeds its own block of the files and the results are gathered in that
 order.
+
+The model computes in config.model_dtype() (FAD_TPU_MODEL_DTYPE; float32
+unless it is set): in bfloat16 the weights are cast once (cast_model), the
+inputs per call and the outputs back to float32, so the statistics stay
+float32 (JAX pipeline.py:367-399).
 """
 
 from __future__ import annotations
@@ -34,12 +39,52 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from . import registry
+from . import config, registry
 from .ops import frontends as fe
 from .ops import stats as stats_ops
 from .ops.resample import resample
 from .parallel.embed import merge_stats
 from .utils.profiling import StageTimer
+
+# What keeps float32 in a reduced-precision model, by family: Encodec's LSTM
+# and output convolution, as prefixes of parameter and buffer names (mixed
+# precision: a bf16 recurrence compounds its error over hundreds of steps,
+# JAX pipeline.py:141-170), and CLAP's constants, which the JAX package
+# keeps out of its parameter tree: the bicubic taps and the shift masks (its
+# attention mask stays float32; the gathered position bias follows the
+# weights).
+KEEP_FLOAT32_PREFIXES = {"encodec": ("lstm.", "conv_out.")}
+KEEP_FLOAT32_BUFFERS = {"clap": ("interp_w", "attn_mask")}
+
+
+def cast_model(family: str, model: torch.nn.Module, dtype: torch.dtype) -> torch.nn.Module:
+    """Cast every floating parameter and buffer of ``model`` to ``dtype`` in
+    place (BatchNorm's running statistics too, which the JAX package casts as
+    pytree leaves), but those KEEP_FLOAT32_* name for ``family``. Returns
+    ``model``."""
+    prefixes = KEEP_FLOAT32_PREFIXES.get(family, ())
+    buffers = KEEP_FLOAT32_BUFFERS.get(family, ())
+    for module_name, module in model.named_modules():
+        path = f"{module_name}." if module_name else ""
+        for name, param in module.named_parameters(recurse=False):
+            if param.is_floating_point() and not f"{path}{name}".startswith(prefixes):
+                param.data = param.data.to(dtype)
+        for name, buf in module.named_buffers(recurse=False):
+            keep = f"{path}{name}".startswith(prefixes) or name in buffers
+            if buf.is_floating_point() and not keep:
+                setattr(module, name, buf.to(dtype))
+    return model
+
+
+def model_compute_dtype(family: str, sample_rate: int) -> torch.dtype:
+    """config.model_dtype(), but float32 for encodec-48k unless
+    FAD_TPU_MODEL_DTYPE is set explicitly (JAX pipeline.py:369-385: its
+    mixed-bf16 FAD delta sat too close to the 1e-3 bar to flip silently)."""
+    dtype = config.model_dtype()
+    if (dtype != torch.float32 and family == "encodec" and sample_rate == 48000
+            and not config.model_dtype_is_forced()):
+        return torch.float32
+    return dtype
 
 # Files per device program by default, per device type, for every family but
 # Encodec. CPU keeps the JAX package's non-TPU default. CUDA: for VGGish, 64 is the
@@ -122,7 +167,7 @@ def bucket_batch(n: int, cap: int) -> int:
     return min(cap, 1 << (int(n - 1).bit_length() if n > 1 else 0))
 
 
-def _vggish_core(model: torch.nn.Module, wave: torch.Tensor, num_patches: int) -> torch.Tensor:
+def _vggish_core(model, wave: torch.Tensor, num_patches: int) -> torch.Tensor:
     """[B, S] waveform -> [B, P, 128]: log-mel patches + CNN for all P rows
     of the bucket; callers keep (or mask to) each file's first P_i rows."""
     patches = fe.vggish_patches_batch(wave, num_patches)
@@ -145,7 +190,7 @@ def _fused_vggish_stats_step(model, wave, p_counts: torch.Tensor, state, num_pat
 
 
 def _mel_cnn_core(
-    model: torch.nn.Module,
+    model,
     wave: torch.Tensor,
     n_valid: torch.Tensor,
     target_sr: int,
@@ -197,8 +242,11 @@ class EmbeddingPipeline:
         verbose: bool = False,
     ):
         self.cfg = registry.ported_model_config(model_name)
-        self.model = model
         self.device = torch.device(device)
+        self.dtype = model_compute_dtype(self.cfg.family, self.cfg.sample_rate)
+        self.model = model if self.dtype == torch.float32 else cast_model(
+            self.cfg.family, model, self.dtype)
+        self.forward = self._resolve_forward()
         if file_batch is None:
             defaults = ENCODEC_FILE_BATCH if self.cfg.family == "encodec" else DEFAULT_FILE_BATCH
             file_batch = defaults[self.device.type]
@@ -211,6 +259,20 @@ class EmbeddingPipeline:
         self.verbose = verbose
         self.mesh = None
         self.timer = StageTimer()
+
+    def _resolve_forward(self):
+        """The model as the chunk steps call it: the module itself in
+        float32; in a reduced dtype, the input cast to it (Encodec casts its
+        own, stage by stage) and the output cast back to float32."""
+        if self.dtype == torch.float32:
+            return self.model
+        model, dtype = self.model, self.dtype
+        cast_input = self.cfg.family != "encodec"
+
+        def forward(x: torch.Tensor) -> torch.Tensor:
+            return model(x.to(dtype) if cast_input else x).to(torch.float32)
+
+        return forward
 
     def set_mesh(self, mesh) -> None:
         """Shard the files of embed_files and accumulate_stats over a
@@ -368,12 +430,12 @@ class EmbeddingPipeline:
                     p_arr = torch.zeros((b,), dtype=torch.int64)
                     p_arr[: len(p_counts)] = torch.tensor(p_counts)
                     sink.state = _fused_vggish_stats_step(
-                        self.model, wave, p_arr.to(self.device), sink.state, p_max
+                        self.forward, wave, p_arr.to(self.device), sink.state, p_max
                     )
                     for (i, _, _), count in zip(chunk, p_counts):
                         counts[i] = counts.get(i, 0) + count
                 else:
-                    emb_dev = _vggish_core(self.model, wave, p_max)  # [b, p_max, 128]
+                    emb_dev = _vggish_core(self.forward, wave, p_max)  # [b, p_max, 128]
                     pending.append((chunk, p_counts, emb_dev))
                 done += len(chunk)
                 if self.verbose:
@@ -437,14 +499,14 @@ class EmbeddingPipeline:
                 n_valid = self._to_device(n_valid)
                 if isinstance(sink, StatsSink):
                     sink.state = _fused_mel_cnn_stats_step(
-                        self.model, wave, n_valid, len(chunk_idx), sink.state,
+                        self.forward, wave, n_valid, len(chunk_idx), sink.state,
                         target_sr, num_frames, i16_full_scale,
                     )
                     for i in chunk_idx:
                         per_file[i] = 1
                 else:
                     emb_dev = _mel_cnn_core(
-                        self.model, wave, n_valid, target_sr, num_frames, i16_full_scale
+                        self.forward, wave, n_valid, target_sr, num_frames, i16_full_scale
                     )
                     pending.append((chunk_idx, emb_dev))
                 done += len(chunk_idx)
@@ -588,10 +650,10 @@ class EmbeddingPipeline:
                 per_file[i] = prepped[i][1]
             if isinstance(sink, StatsSink):
                 sink.state = _fused_encodec_stats_step(
-                    self.model, wave, self._to_device(frames), sink.state
+                    self.forward, wave, self._to_device(frames), sink.state
                 )
             else:
-                pending.append((chunk_idx, self.model(wave)))  # [b, T, 128]
+                pending.append((chunk_idx, self.forward(wave)))  # [b, T, 128]
             if self.verbose:
                 print(f"[FAD-TORCH] embedded {c0 + len(chunk_idx)}/{len(idxs)} files")
         # Copy back after all launches, so device work overlaps host packing.

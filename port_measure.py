@@ -26,6 +26,10 @@ score(..., device_stats=True) runs:
 It also times the kernels' build: ops/_build.build() (one nvcc per source,
 in parallel, then a link) against one nvcc call for all sources.
 
+The numerics knobs apply as they do to FrechetAudioDistance: run it under
+FAD_TPU_MODEL_DTYPE=bfloat16 (with another --out-dir) for the bf16 models;
+each model's entry names its compute dtype.
+
 Prints a summary and writes port_measure.json under --out-dir. Numbers are
 of the card it ran on: the card's name and power limit are in the file.
 """
@@ -174,7 +178,7 @@ def mel_split(torch, np, pipeline_mod, pipe, clips, prep, target_sr, full_scale)
 
     def step(state, wave, n_valid, n_live):
         return pipeline_mod._fused_mel_cnn_stats_step(
-            pipe.model, wave, n_valid, n_live, state, target_sr, num_frames, full_scale
+            pipe.forward, wave, n_valid, n_live, state, target_sr, num_frames, full_scale
         )
 
     return timed_split(torch, pipe, prepare, step)
@@ -198,7 +202,7 @@ def encodec_split(torch, np, pipeline_mod, fe, pipe, clips, sr) -> dict:
         return packed
 
     def step(state, wave, frames):
-        return pipeline_mod._fused_encodec_stats_step(pipe.model, wave, frames, state)
+        return pipeline_mod._fused_encodec_stats_step(pipe.forward, wave, frames, state)
 
     return timed_split(torch, pipe, prepare, step)
 
@@ -290,7 +294,8 @@ def measure_model(torch, np, port, model_name: str, n_clips: int, batches, tmp) 
           f"({100 * prof['busy_share']:.1f} %)")
     for row in prof["kernels"][:12]:
         print(f"  {row['ms']:9.3f} ms  x{row['count']:<4d} {row['name'][:110]}")
-    out = {"clips": n_clips, "clip_seconds": CLIP_SECONDS, "sweep": sweep, "profile": prof}
+    out = {"clips": n_clips, "clip_seconds": CLIP_SECONDS, "model_dtype": str(default.dtype),
+           "sweep": sweep, "profile": prof}
     if family != "vggish":
         if family == "encodec":
             out["split"] = encodec_split(torch, np, pipeline_mod, fe, default, clips, sr)
