@@ -73,12 +73,16 @@ into the kernels:
     {"host_runtime": ...} line.
 Last, the numerics modes (step 10), in a {"numerics": ...} line with its
 seconds:
-(a) the bf16 instances of both Swin kernels (csrc/window_attn_bf16.cu)
-    against their plain bf16 versions at every layer shape of a CLAP
-    forward at file_batch 64: the error in bf16 ulps of the output's
-    largest magnitude (at most 2) and the share of elements within one ulp
-    of their own (at least 0.9), times, bounds at the dense bf16 rate, and
-    the ptxas lines (no spill);
+(a) the bf16 instances of both Swin kernels (csrc/window_attn_bf16.cu,
+    wgmma products on weight slabs that two windows share) against their
+    plain bf16 versions at every layer shape of a CLAP forward at
+    file_batch 64 and at a ragged BW of each (odd, shifted, nine masks):
+    the error in bf16 ulps of the output's largest magnitude (at most 2)
+    and the share of elements within one ulp of their own (at least 0.9),
+    times, bounds at the dense bf16 rate, the ptxas lines (every bf16
+    kernel, no spill), the HGMMA instructions of each kernel in the
+    library's SASS (none fails the run), and torch.matmul's time on the
+    stage-4 qkv and proj GEMM shapes as a yardstick;
 (b) vggish, pann-16k, clap, encodec-24k (mixed) and encodec-48k (forced,
     mixed) with FAD_TPU_MODEL_DTYPE=bfloat16 against float32 on the same
     32 + 32 clips of 10 s: FAD deltas (held to 1e-3 absolute but for
@@ -106,7 +110,7 @@ The last line of standard output is
 the line before it lists the kernels with their launch counts, errors,
 times per 64-clip chunk, bounds (with the peak rate each used:
 `bound_flops_per_s`) and arithmetic (`arith`: "fp32 fft", "3xtf32 mma" or
-"bf16 mma.sync").
+"bf16 wgmma (attention: mma.sync)").
 Without CUDA, or outside a checkout of the repository, it exits non-zero and
 prints no result.
 """
@@ -489,6 +493,43 @@ def swin_layers(clap) -> dict:
     return layers
 
 
+def swin_inputs(torch, gen, clap, name: str, c: int, heads: int, bw: int, mask, dtype=None) -> dict:
+    """Keyword arguments of a Swin kernel on the card, drawn from gen: x
+    [bw, 64, c] x 0.5, weights x 0.05, biases x 0.01, LayerNorm gamma 1 +- 0.1
+    and beta 0.1, the gathered relative-position bias of a table x 0.1; all
+    in dtype (when given) but the float32 mask."""
+    dev = torch.device("cuda")
+    n = clap.WINDOW_SIZE ** 2
+
+    def normal(shape, scale, offset=0.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale + offset
+
+    table = normal(((2 * clap.WINDOW_SIZE - 1) ** 2, heads), 0.1)
+    index = torch.from_numpy(clap._relative_position_index(clap.WINDOW_SIZE).reshape(-1))
+    bias = table[index.long().to(dev)].reshape(n, n, heads).permute(2, 0, 1).contiguous()
+    args = dict(
+        x_windows=normal((bw, n, c), 0.5),
+        w_qkv=normal((c, 3 * c), 0.05), b_qkv=normal((3 * c,), 0.01),
+        w_proj=normal((c, c), 0.05), b_proj=normal((c,), 0.01), bias=bias, mask=mask.to(dev),
+        gamma1=normal((c,), 0.1, 1.0), beta1=normal((c,), 0.1),
+    )
+    if name == "swin_block_fused":
+        args.update(gamma2=normal((c,), 0.1, 1.0), beta2=normal((c,), 0.1),
+                    w_fc1=normal((c, 4 * c), 0.05), b_fc1=normal((4 * c,), 0.01),
+                    w_fc2=normal((4 * c, c), 0.05), b_fc2=normal((c,), 0.01))
+    if dtype is not None:
+        args = {k: v if k == "mask" else v.to(dtype).contiguous() for k, v in args.items()}
+    return args
+
+
+def bf16_accuracy(torch, diff, ref) -> tuple:
+    """(the largest |kernel - plain| in bf16 ulps of the plain output's largest
+    magnitude, the share of elements within one ulp of their own value)."""
+    ref_f = ref.float()
+    return (float(diff.max()) / float(bf16_ulp(torch, ref_f.abs().max())),
+            float((diff <= bf16_ulp(torch, ref_f)).float().mean()))
+
+
 def swin_kernel_phase(torch, np, window_attn, clap, batch: int, dtype=None) -> dict:
     """Both Swin kernels vs plain at every layer shape of one CLAP forward at
     B = the CUDA file_batch: swin_block_fused at stages 1-3 (shifted and not),
@@ -509,9 +550,6 @@ def swin_kernel_phase(torch, np, window_attn, clap, batch: int, dtype=None) -> d
     bf16 = dtype == torch.bfloat16
     rate = BF16_FLOPS if bf16 else TF32X3_FLOPS
 
-    def normal(shape, scale, offset=0.0):
-        return torch.randn(shape, generator=gen, device=dev) * scale + offset
-
     summary = {name: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
                       "bound_ms_fp32": 0.0, "flops": 0.0, "bytes": 0.0, "shapes": []}
                for name in ("swin_block_fused", "window_attention_fused")}
@@ -522,22 +560,7 @@ def swin_kernel_phase(torch, np, window_attn, clap, batch: int, dtype=None) -> d
     for (stage, shifted), layer in sorted(swin_layers(clap).items()):
         name, c, heads, nw = layer["kernel"], layer["c"], layer["heads"], layer["nw"]
         per_forward = layer["per_forward"]
-        table = normal(((2 * clap.WINDOW_SIZE - 1) ** 2, heads), 0.1)
-        index = torch.from_numpy(clap._relative_position_index(clap.WINDOW_SIZE).reshape(-1))
-        bias = table[index.long().to(dev)].reshape(n, n, heads).permute(2, 0, 1).contiguous()
-        mask = layer["mask"].to(dev)
-        args = dict(
-            x_windows=normal((batch * nw, n, c), 0.5),
-            w_qkv=normal((c, 3 * c), 0.05), b_qkv=normal((3 * c,), 0.01),
-            w_proj=normal((c, c), 0.05), b_proj=normal((c,), 0.01), bias=bias, mask=mask,
-            gamma1=normal((c,), 0.1, 1.0), beta1=normal((c,), 0.1),
-        )
-        if name == "swin_block_fused":
-            args.update(gamma2=normal((c,), 0.1, 1.0), beta2=normal((c,), 0.1),
-                        w_fc1=normal((c, 4 * c), 0.05), b_fc1=normal((4 * c,), 0.01),
-                        w_fc2=normal((4 * c, c), 0.05), b_fc2=normal((c,), 0.01))
-        if bf16:
-            args = {k: v if k == "mask" else v.to(dtype).contiguous() for k, v in args.items()}
+        args = swin_inputs(torch, gen, clap, name, c, heads, batch * nw, layer["mask"], dtype)
         kernel = getattr(window_attn, name)
         plain = getattr(window_attn, f"{name}_reference")
         out = kernel(**args, heads=heads, num_windows=nw)
@@ -564,9 +587,7 @@ def swin_kernel_phase(torch, np, window_attn, clap, batch: int, dtype=None) -> d
                      "per_forward": per_forward, "ms": kern_ms, "plain_ms": plain_ms,
                      "bound_ms": bound_ms, "max_abs_err": err}
         if bf16:
-            ref_f = ref.float()
-            ulps = err / float(bf16_ulp(torch, ref_f.abs().max()))
-            within = float((diff <= bf16_ulp(torch, ref_f)).float().mean())
+            ulps, within = bf16_accuracy(torch, diff, ref)
             shape_row.update(max_err_ulps=ulps, within_one_ulp=within)
             accuracy = f"max_abs_err {err:.3e} = {ulps:.2f} ulps of the largest, {within:.4f} within one ulp"
             rates = f"{bound_by} at {rate_name(rate)}"
@@ -1246,6 +1267,79 @@ def bf16_ptxas(build_log: str) -> list:
     return rows
 
 
+# Step 10(a)'s ragged cases: (kernel, C, heads, windows per image, images). Nine windows an
+# image (a 24 x 24 token grid, shifted: nine masks) make BW odd, so a block's last window pair
+# and the GEMMs' last 128-row tile are half empty.
+BF16_RAGGED = (("swin_block_fused", 96, 4, 9, 7), ("window_attention_fused", 768, 32, 9, 3))
+# The bf16 kernels of csrc/window_attn_bf16.cu that ptxas must report without a spill:
+# swin_attn_bf16_kernel and swin_mlp_bf16_kernel at C = 96, 192, 384; gemm_bf16_kernel,
+# ln_rows_bf16_kernel and attention_from_qkv_bf16_kernel.
+BF16_KERNEL_COUNT = 9
+# The bf16 kernels' functions in the library's SASS, by the launch key they serve.
+BF16_FUNCTIONS = {"swin_block_fused[bf16]": ("swin_attn_bf16_kernel", "swin_mlp_bf16_kernel"),
+                  "window_attention_fused[bf16]": ("gemm_bf16_kernel",)}
+
+
+def bf16_ragged_phase(torch, window_attn, clap) -> list:
+    """Each bf16 kernel against its plain bf16 version at a ragged BW
+    (BF16_RAGGED), shifted, with mask_count > 1."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    rows = []
+    for name, c, heads, nw, images in BF16_RAGGED:
+        res = clap.WINDOW_SIZE * int(round(math.sqrt(nw)))
+        mask = torch.from_numpy(clap._shift_attn_mask(res, clap.WINDOW_SIZE, clap.WINDOW_SIZE // 2))
+        check(mask.shape[0] == nw > 1, f"ragged mask {tuple(mask.shape)}")
+        args = swin_inputs(torch, gen, clap, name, c, heads, images * nw, mask, torch.bfloat16)
+        out = getattr(window_attn, name)(**args, heads=heads, num_windows=nw)
+        ref = getattr(window_attn, f"{name}_reference")(**args, heads=heads, num_windows=nw)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(out).all()), f"{name}[bf16] ragged output not finite")
+        diff = (out.float() - ref.float()).abs()
+        ulps, within = bf16_accuracy(torch, diff, ref)
+        print(f"{name}[bf16] ragged (C {c}, {heads} heads, BW {images * nw} = {images} x {nw}, "
+              f"shifted, {nw} masks): max_abs_err {float(diff.max()):.3e} = {ulps:.2f} ulps of "
+              f"the largest, {within:.4f} within one ulp")
+        check(ulps <= SWIN_BF16_ULPS and within >= SWIN_BF16_WITHIN,
+              f"{name}[bf16] ragged vs plain: {ulps} ulps or {within} within one ulp")
+        rows.append({"kernel": name, "C": c, "heads": heads, "bw": images * nw,
+                     "mask_count": nw, "max_abs_err": float(diff.max()), "max_err_ulps": ulps,
+                     "within_one_ulp": within})
+    return rows
+
+
+def hgmma_counts(_build) -> dict:
+    """HGMMA (wgmma) instructions in the built library's SASS, per bf16 launch
+    key (BF16_FUNCTIONS), by cuobjdump -sass."""
+    cuobjdump = Path(_build.find_nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(_build.library_path())],
+                          capture_output=True, text=True, check=True).stdout
+    counts = {key: 0 for key in BF16_FUNCTIONS}
+    function = ""
+    for line in sass.splitlines():
+        if "Function :" in line:
+            function = line.split("Function :")[1].strip()
+        elif "HGMMA" in line:
+            for key, names in BF16_FUNCTIONS.items():
+                counts[key] += any(name in function for name in names)
+    return counts
+
+
+def gemm_yardstick(torch, batch: int) -> dict:
+    """torch.matmul's ms on the bf16 GEMM shapes of window_attention_fused at
+    CLAP stage 4 (M = batch * 64 tokens, C = 768): qkv [M, C] x [C, 3C] and
+    proj [M, C] x [C, C]. A library yardstick the port never calls."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    m, c = batch * 64, 768
+    a = torch.randn((m, c), generator=gen, device="cuda").to(torch.bfloat16)
+    times = {}
+    for key, n in (("qkv", 3 * c), ("proj", c)):
+        w = torch.randn((c, n), generator=gen, device="cuda").to(torch.bfloat16)
+        times[key] = cuda_ms(torch, lambda: torch.matmul(a, w), iters=50)
+        print(f"torch.matmul bf16 [{m}, {c}] x [{c}, {n}] ({key}): {times[key]:.4f} ms, "
+              f"{2 * m * c * n / times[key] / 1e9:.1f} TFLOP/s")
+    return times
+
+
 def numerics_phase(torch, np, calculator, launches, window_attn, clap, _build, apply_precision,
                    single_clap: float, clap_pair, batch: int) -> dict:
     """Step 10, the numerics modes. (a) Both bf16 Swin kernels against their
@@ -1261,12 +1355,18 @@ def numerics_phase(torch, np, calculator, launches, window_attn, clap, _build, a
     no swin_block_fused launch, 12 window_attention_fused a chunk, the
     score within 1e-6 relative of the default route's."""
     out = {"kernels": swin_kernel_phase(torch, np, window_attn, clap, batch, torch.bfloat16)}
+    out["ragged"] = bf16_ragged_phase(torch, window_attn, clap)
     ptxas = bf16_ptxas(_build.library_path().with_suffix(".log").read_text())
     for name, regs, spill in ptxas:
         print(f"ptxas bf16: {name[:90]}: {regs} registers; {spill}")
-    check(len(ptxas) >= 7 and all(" 0 bytes spill stores, 0 bytes spill loads" in r[2]
-                                  for r in ptxas), f"bf16 kernels spill or are missing: {ptxas}")
+    check(len(ptxas) == BF16_KERNEL_COUNT
+          and all(" 0 bytes spill stores, 0 bytes spill loads" in r[2] for r in ptxas),
+          f"bf16 kernels spill or are missing: {ptxas}")
     out["ptxas"] = ptxas
+    out["hgmma"] = hgmma_counts(_build)
+    print(f"HGMMA instructions in the library's SASS: {out['hgmma']}")
+    check(all(n > 0 for n in out["hgmma"].values()), f"a bf16 kernel has no HGMMA: {out['hgmma']}")
+    out["gemm_yardstick_ms"] = gemm_yardstick(torch, batch)
 
     # (b) bf16 against float32, family by family.
     rates = {"vggish": (16000, 1), "pann-16k": (16000, 1), "clap": (48000, 1),
@@ -1894,7 +1994,11 @@ def main() -> int:
                 "bound_ms": numerics["kernels"][name]["bound_ms"],
                 "bound_by": numerics["kernels"][name]["bound_by"],
                 "library_ms": None,
-                "arith": "bf16 mma.sync",
+                "arith": "bf16 wgmma (attention: mma.sync)",
+                "hgmma": numerics["hgmma"][f"{name}[bf16]"],
+                "ragged": [r for r in numerics["ragged"] if r["kernel"] == name],
+                **({"gemm_yardstick_ms": numerics["gemm_yardstick_ms"]}
+                   if name == "window_attention_fused" else {}),
                 "bound_flops_per_s": BF16_FLOPS,
                 "at": "one 64-clip CLAP chunk: every launch of a forward",
                 "shapes": numerics["kernels"][name]["shapes"],

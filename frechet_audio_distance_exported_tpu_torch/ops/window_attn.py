@@ -57,7 +57,7 @@ KERNEL_HEAD_GROUP = 4
 # The widths whose whole block the swin_block_fused kernel keeps on chip
 # (CLAP stages 1-3); stage 4 runs window_attention_fused.
 KERNEL_BLOCK_WIDTHS = (96, 192, 384)
-KERNEL_ALIGN = 16  # bytes: the kernels stream their operands with 16-byte cp.async
+KERNEL_ALIGN = 16  # bytes: the kernels stream their operands with 16-byte cp.async or TMA
 # window_attention_fused's proj GEMM puts its 64-token row tiles on gridDim.y.
 KERNEL_MAX_WINDOWS = 65535
 
