@@ -7,11 +7,18 @@ kernels) from the sources in this checkout and checks each against its
 plain torch version at its main path's shapes, at the CUDA file_batch of
 64: the two log-mel kernels (each an in-block real
 FFT on csrc/rfft.cuh), swin_block_fused at CLAP stages 1-3 (shifted and
-not) and window_attention_fused at stage 4 (LN1, then the qkv and proj
-3xTF32 GEMMs over token tiles around the per-window attention:
-csrc/window_attn.cu), each
+not) and window_attention_fused at stage 4 (csrc/window_attn.cu: the
+weights split once a call, then 3xTF32 wgmma GEMMs over token tiles, fed
+by TMA, with the LayerNorm applied on load, around the per-window
+attention), each
 timed beside its plain version and its bound (the log-mel kernels also
-beside a cuFFT composition of the same log-mel, as a yardstick). Then it
+beside a cuFFT composition of the same log-mel, as a yardstick; the Swin
+kernels beside the time of their weights' split). The float32 Swin
+kernels are also held to their plain versions at a ragged BW of each
+(odd, shifted, nine masks), their ptxas lines (no spill), the HGMMA
+instructions of the GEMM they launch (none fails the run), and
+torch.matmul's float32 time on the stage-4 GEMM shapes, TF32 off and on,
+is printed as a yardstick. Then it
 drives the ported paths through the public API,
 FrechetAudioDistance(weights="random", device="cuda"):
 - VGGish: scores two 16 kHz WAV corpora and checks the results;
@@ -109,8 +116,8 @@ The last line of standard output is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}};
 the line before it lists the kernels with their launch counts, errors,
 times per 64-clip chunk, bounds (with the peak rate each used:
-`bound_flops_per_s`) and arithmetic (`arith`: "fp32 fft", "3xtf32 mma" or
-"bf16 wgmma (attention: mma.sync)").
+`bound_flops_per_s`) and arithmetic (`arith`: "fp32 fft", "3xtf32 wgmma
+(attention: mma.sync)" or "bf16 wgmma (attention: mma.sync)").
 Without CUDA, or outside a checkout of the repository, it exits non-zero and
 prints no result.
 """
@@ -231,6 +238,29 @@ def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(torch, fn, name: str = "", iters: int = 5):
+    """Device milliseconds per call of fn of the kernels whose name holds
+    name (every kernel: ""), summed from a torch.profiler trace of iters
+    calls after one warm-up call; None where the trace has no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.time_range.end - e.time_range.start for e in prof.events()
+                if e.device_type == DeviceType.CUDA and name in e.name
+                and not e.name.startswith("Memcpy") and not e.name.startswith("Memset"))
+    return total / 1e3 / iters if total > 0 else None
+
+
+def ms_text(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f} ms"
 
 
 def timed_pair(torch, kernel, plain, iters: int = 20):
@@ -543,7 +573,9 @@ def swin_kernel_phase(torch, np, window_attn, clap, batch: int, dtype=None) -> d
     4*M*64*C for the attention half (M = tokens) at the rate of the kernels'
     products (float32: 3xTF32, with the float32 SIMT bound printed beside it;
     bf16: the dense bf16 rate), and x, out, the weights, bias and mask as
-    bytes in their dtypes."""
+    bytes in their dtypes. For float32 also the call's device time and that
+    of the weights' split in it (split_weights_kernel, which the wrapper
+    launches for each weight in every call), from a torch.profiler trace."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
     n = clap.WINDOW_SIZE ** 2
@@ -551,12 +583,13 @@ def swin_kernel_phase(torch, np, window_attn, clap, batch: int, dtype=None) -> d
     rate = BF16_FLOPS if bf16 else TF32X3_FLOPS
 
     summary = {name: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-                      "bound_ms_fp32": 0.0, "flops": 0.0, "bytes": 0.0, "shapes": []}
+                      "bound_ms_fp32": 0.0, "device_ms": 0.0, "split_ms": 0.0, "flops": 0.0,
+                      "bytes": 0.0, "shapes": []}
                for name in ("swin_block_fused", "window_attention_fused")}
     if bf16:
         for row in summary.values():
             row.update(max_err_ulps=0.0, within_one_ulp=1.0)
-            del row["bound_ms_fp32"]
+            del row["bound_ms_fp32"], row["device_ms"], row["split_ms"]
     for (stage, shifted), layer in sorted(swin_layers(clap).items()):
         name, c, heads, nw = layer["kernel"], layer["c"], layer["heads"], layer["nw"]
         per_forward = layer["per_forward"]
@@ -592,10 +625,14 @@ def swin_kernel_phase(torch, np, window_attn, clap, batch: int, dtype=None) -> d
             accuracy = f"max_abs_err {err:.3e} = {ulps:.2f} ulps of the largest, {within:.4f} within one ulp"
             rates = f"{bound_by} at {rate_name(rate)}"
         else:
-            shape_row["bound_ms_fp32"] = bound_ms_fp32
+            call = lambda: kernel(**args, heads=heads, num_windows=nw)  # noqa: E731
+            dev_ms = device_ms(torch, call)
+            split_ms = device_ms(torch, call, "split_weights_kernel")
+            shape_row.update(bound_ms_fp32=bound_ms_fp32, device_ms=dev_ms, split_ms=split_ms)
             accuracy = f"max_abs_err {err:.3e}"
             rates = (f"{bound_by} at {rate_name(rate)}; {bound_ms_fp32:.4f} ms at "
-                     f"{rate_name(F32_FLOPS)}")
+                     f"{rate_name(F32_FLOPS)}; device time {ms_text(dev_ms)}, of it the "
+                     f"weights' split {ms_text(split_ms)}")
         print(f"{name}{'[bf16]' if bf16 else ''} stage {stage + 1} (C {c}, {heads} heads, nW {nw}, "
               f"{'shifted' if shifted else 'unshifted'}) B={batch}: {accuracy}, "
               f"kernel {kern_ms:.4f} ms ({runs[1]:.4f}, {runs[2]:.4f}) plain {plain_ms:.4f} ms "
@@ -613,13 +650,18 @@ def swin_kernel_phase(torch, np, window_attn, clap, batch: int, dtype=None) -> d
         if bf16:
             row["max_err_ulps"] = max(row["max_err_ulps"], ulps)
             row["within_one_ulp"] = min(row["within_one_ulp"], within)
-        for key in ("ms", "plain_ms", "bound_ms") + (() if bf16 else ("bound_ms_fp32",)):
-            row[key] += per_forward * shape_row[key]
+        for key in ("ms", "plain_ms", "bound_ms") + (
+                () if bf16 else ("bound_ms_fp32", "device_ms", "split_ms")):
+            if row[key] is not None and shape_row[key] is not None:
+                row[key] += per_forward * shape_row[key]
+            else:  # a trace without device time: not measured
+                row[key] = None
         row["flops"] += per_forward * flops
         row["bytes"] += per_forward * nbytes
         row["shapes"].append(shape_row)
         del args, out, ref, diff
     for row in summary.values():
+        row["tflops"] = row["flops"] / row["ms"] / 1e9
         row["bound_by"] = bound(row.pop("flops"), row.pop("bytes"), rate)[1]
     return summary
 
@@ -1252,12 +1294,15 @@ def embedding_error(np, ours, ref) -> dict:
             "median_rel": float(np.median(diff[big] / np.abs(ref[big])))}
 
 
-def bf16_ptxas(build_log: str) -> list:
-    """(kernel, registers, spill line) of each bf16 kernel in the build log."""
+def ptxas_rows(build_log: str, source: str) -> list:
+    """(kernel, registers, spill line) of each kernel of one source in the
+    build log; source is the file's name as its kernels' mangled names carry
+    it ("window_attn_cu" for csrc/window_attn.cu, "window_attn_bf16" for
+    csrc/window_attn_bf16.cu)."""
     rows, name = [], None
     for line in build_log.splitlines():
         if "Compiling entry function" in line:
-            name = line.split("'")[1] if "window_attn_bf16" in line else None
+            name = line.split("'")[1] if source in line else None
         elif name and "spill" in line and not any(r[0] == name for r in rows):
             rows.append([name, None, line.strip()])
         elif name and "Used" in line and "registers" in line:
@@ -1267,10 +1312,17 @@ def bf16_ptxas(build_log: str) -> list:
     return rows
 
 
-# Step 10(a)'s ragged cases: (kernel, C, heads, windows per image, images). Nine windows an
-# image (a 24 x 24 token grid, shifted: nine masks) make BW odd, so a block's last window pair
-# and the GEMMs' last 128-row tile are half empty.
-BF16_RAGGED = (("swin_block_fused", 96, 4, 9, 7), ("window_attention_fused", 768, 32, 9, 3))
+# The ragged cases of steps 3 and 10(a): (kernel, C, heads, windows per image, images). Nine
+# windows an image (a 24 x 24 token grid, shifted: nine masks) make BW odd, so a block's last
+# window pair and the GEMMs' last 128-row tile are half empty.
+SWIN_RAGGED = (("swin_block_fused", 96, 4, 9, 7), ("window_attention_fused", 768, 32, 9, 3))
+# The float32 kernels of csrc/window_attn.cu that ptxas must report without a spill:
+# gemm_tf32_kernel at three epilogues and two tile widths, split_weights_kernel,
+# row_stats_kernel and attention_from_qkv_kernel.
+F32_KERNEL_COUNT = 9
+# The float32 kernels' wgmma functions in the library's SASS, by the launch key they serve.
+F32_FUNCTIONS = {"swin_block_fused": ("gemm_tf32_kernel",),
+                 "window_attention_fused": ("gemm_tf32_kernel",)}
 # The bf16 kernels of csrc/window_attn_bf16.cu that ptxas must report without a spill:
 # swin_attn_bf16_kernel and swin_mlp_bf16_kernel at C = 96, 192, 384; gemm_bf16_kernel,
 # ln_rows_bf16_kernel and attention_from_qkv_bf16_kernel.
@@ -1280,64 +1332,110 @@ BF16_FUNCTIONS = {"swin_block_fused[bf16]": ("swin_attn_bf16_kernel", "swin_mlp_
                   "window_attention_fused[bf16]": ("gemm_bf16_kernel",)}
 
 
-def bf16_ragged_phase(torch, window_attn, clap) -> list:
-    """Each bf16 kernel against its plain bf16 version at a ragged BW
-    (BF16_RAGGED), shifted, with mask_count > 1."""
+def ragged_phase(torch, window_attn, clap, dtype) -> list:
+    """Each Swin kernel in dtype against its plain version at a ragged BW
+    (SWIN_RAGGED), shifted, with mask_count > 1: float32 within SWIN_ATOL,
+    bf16 within the ulp bars."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    bf16 = dtype == torch.bfloat16
     rows = []
-    for name, c, heads, nw, images in BF16_RAGGED:
+    for name, c, heads, nw, images in SWIN_RAGGED:
+        label = f"{name}[bf16]" if bf16 else name
         res = clap.WINDOW_SIZE * int(round(math.sqrt(nw)))
         mask = torch.from_numpy(clap._shift_attn_mask(res, clap.WINDOW_SIZE, clap.WINDOW_SIZE // 2))
         check(mask.shape[0] == nw > 1, f"ragged mask {tuple(mask.shape)}")
-        args = swin_inputs(torch, gen, clap, name, c, heads, images * nw, mask, torch.bfloat16)
+        args = swin_inputs(torch, gen, clap, name, c, heads, images * nw, mask,
+                           torch.bfloat16 if bf16 else None)
         out = getattr(window_attn, name)(**args, heads=heads, num_windows=nw)
         ref = getattr(window_attn, f"{name}_reference")(**args, heads=heads, num_windows=nw)
         torch.cuda.synchronize()
-        check(bool(torch.isfinite(out).all()), f"{name}[bf16] ragged output not finite")
+        check(bool(torch.isfinite(out).all()), f"{label} ragged output not finite")
         diff = (out.float() - ref.float()).abs()
-        ulps, within = bf16_accuracy(torch, diff, ref)
-        print(f"{name}[bf16] ragged (C {c}, {heads} heads, BW {images * nw} = {images} x {nw}, "
-              f"shifted, {nw} masks): max_abs_err {float(diff.max()):.3e} = {ulps:.2f} ulps of "
-              f"the largest, {within:.4f} within one ulp")
-        check(ulps <= SWIN_BF16_ULPS and within >= SWIN_BF16_WITHIN,
-              f"{name}[bf16] ragged vs plain: {ulps} ulps or {within} within one ulp")
-        rows.append({"kernel": name, "C": c, "heads": heads, "bw": images * nw,
-                     "mask_count": nw, "max_abs_err": float(diff.max()), "max_err_ulps": ulps,
-                     "within_one_ulp": within})
+        err = float(diff.max())
+        row = {"kernel": name, "C": c, "heads": heads, "bw": images * nw, "mask_count": nw,
+               "max_abs_err": err}
+        shape = (f"{label} ragged (C {c}, {heads} heads, BW {images * nw} = {images} x {nw}, "
+                 f"shifted, {nw} masks): max_abs_err {err:.3e}")
+        if bf16:
+            ulps, within = bf16_accuracy(torch, diff, ref)
+            print(f"{shape} = {ulps:.2f} ulps of the largest, {within:.4f} within one ulp")
+            check(ulps <= SWIN_BF16_ULPS and within >= SWIN_BF16_WITHIN,
+                  f"{label} ragged vs plain: {ulps} ulps or {within} within one ulp")
+            row.update(max_err_ulps=ulps, within_one_ulp=within)
+        else:
+            print(shape)
+            check(err <= SWIN_ATOL, f"{label} ragged vs plain: {err} > {SWIN_ATOL}")
+        rows.append(row)
+        del args, out, ref, diff
     return rows
 
 
-def hgmma_counts(_build) -> dict:
-    """HGMMA (wgmma) instructions in the built library's SASS, per bf16 launch
-    key (BF16_FUNCTIONS), by cuobjdump -sass."""
+def hgmma_counts(_build, functions: dict) -> dict:
+    """HGMMA (wgmma) instructions in the built library's SASS, per launch key
+    of functions (BF16_FUNCTIONS or F32_FUNCTIONS), by cuobjdump -sass."""
     cuobjdump = Path(_build.find_nvcc()).with_name("cuobjdump")
     sass = subprocess.run([str(cuobjdump), "-sass", str(_build.library_path())],
                           capture_output=True, text=True, check=True).stdout
-    counts = {key: 0 for key in BF16_FUNCTIONS}
+    counts = {key: 0 for key in functions}
     function = ""
     for line in sass.splitlines():
         if "Function :" in line:
             function = line.split("Function :")[1].strip()
         elif "HGMMA" in line:
-            for key, names in BF16_FUNCTIONS.items():
+            for key, names in functions.items():
                 counts[key] += any(name in function for name in names)
     return counts
 
 
-def gemm_yardstick(torch, batch: int) -> dict:
-    """torch.matmul's ms on the bf16 GEMM shapes of window_attention_fused at
-    CLAP stage 4 (M = batch * 64 tokens, C = 768): qkv [M, C] x [C, 3C] and
-    proj [M, C] x [C, C]. A library yardstick the port never calls."""
+def gemm_yardstick(torch, batch: int, dtype) -> dict:
+    """torch.matmul's ms in dtype on the GEMM shapes of window_attention_fused
+    at CLAP stage 4 (M = batch * 64 tokens, C = 768): qkv [M, C] x [C, 3C]
+    and proj [M, C] x [C, C]; float32 with TF32 off (exact float32, as the
+    port computes) and then on (1xTF32, for contrast). A library yardstick
+    the port never calls."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
     m, c = batch * 64, 768
-    a = torch.randn((m, c), generator=gen, device="cuda").to(torch.bfloat16)
+    a = torch.randn((m, c), generator=gen, device="cuda").to(dtype)
+    weights = {key: torch.randn((c, n), generator=gen, device="cuda").to(dtype)
+               for key, n in (("qkv", 3 * c), ("proj", c))}
+    modes = (None,) if dtype == torch.bfloat16 else (False, True)
     times = {}
-    for key, n in (("qkv", 3 * c), ("proj", c)):
-        w = torch.randn((c, n), generator=gen, device="cuda").to(torch.bfloat16)
-        times[key] = cuda_ms(torch, lambda: torch.matmul(a, w), iters=50)
-        print(f"torch.matmul bf16 [{m}, {c}] x [{c}, {n}] ({key}): {times[key]:.4f} ms, "
-              f"{2 * m * c * n / times[key] / 1e9:.1f} TFLOP/s")
+    for tf32 in modes:
+        if tf32 is not None:
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+        try:
+            for key, w in weights.items():
+                name = key if tf32 is None else f"{key}_tf32_{'on' if tf32 else 'off'}"
+                times[name] = cuda_ms(torch, lambda: torch.matmul(a, w), iters=50)
+                kind = str(dtype).removeprefix("torch.") + (
+                    "" if tf32 is None else f", TF32 {'on' if tf32 else 'off'}")
+                print(f"torch.matmul {kind} [{m}, {c}] x [{c}, {w.shape[1]}] ({key}): "
+                      f"{times[name]:.4f} ms, {2 * m * c * w.shape[1] / times[name] / 1e9:.1f} "
+                      f"TFLOP/s")
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
     return times
+
+
+def float32_swin_checks(torch, window_attn, clap, _build, batch: int) -> dict:
+    """Step 3's further checks of the float32 Swin kernels: the ragged cases,
+    the ptxas lines of csrc/window_attn.cu (F32_KERNEL_COUNT kernels, no
+    spill), the HGMMA instructions of the kernels each launch key runs (none
+    fails), and torch.matmul's float32 time on the stage-4 GEMM shapes."""
+    out = {"ragged": ragged_phase(torch, window_attn, clap, torch.float32)}
+    ptxas = ptxas_rows(_build.library_path().with_suffix(".log").read_text(), "window_attn_cu")
+    for name, regs, spill in ptxas:
+        print(f"ptxas float32: {name[:90]}: {regs} registers; {spill}")
+    check(len(ptxas) == F32_KERNEL_COUNT
+          and all(" 0 bytes spill stores, 0 bytes spill loads" in r[2] for r in ptxas),
+          f"float32 kernels spill or are missing: {ptxas}")
+    out["ptxas"] = ptxas
+    out["hgmma"] = hgmma_counts(_build, F32_FUNCTIONS)
+    print(f"HGMMA instructions of the float32 kernels: {out['hgmma']}")
+    check(all(n > 0 for n in out["hgmma"].values()),
+          f"a float32 kernel has no HGMMA: {out['hgmma']}")
+    out["gemm_yardstick_ms"] = gemm_yardstick(torch, batch, torch.float32)
+    return out
 
 
 def numerics_phase(torch, np, calculator, launches, window_attn, clap, _build, apply_precision,
@@ -1355,18 +1453,18 @@ def numerics_phase(torch, np, calculator, launches, window_attn, clap, _build, a
     no swin_block_fused launch, 12 window_attention_fused a chunk, the
     score within 1e-6 relative of the default route's."""
     out = {"kernels": swin_kernel_phase(torch, np, window_attn, clap, batch, torch.bfloat16)}
-    out["ragged"] = bf16_ragged_phase(torch, window_attn, clap)
-    ptxas = bf16_ptxas(_build.library_path().with_suffix(".log").read_text())
+    out["ragged"] = ragged_phase(torch, window_attn, clap, torch.bfloat16)
+    ptxas = ptxas_rows(_build.library_path().with_suffix(".log").read_text(), "window_attn_bf16")
     for name, regs, spill in ptxas:
         print(f"ptxas bf16: {name[:90]}: {regs} registers; {spill}")
     check(len(ptxas) == BF16_KERNEL_COUNT
           and all(" 0 bytes spill stores, 0 bytes spill loads" in r[2] for r in ptxas),
           f"bf16 kernels spill or are missing: {ptxas}")
     out["ptxas"] = ptxas
-    out["hgmma"] = hgmma_counts(_build)
+    out["hgmma"] = hgmma_counts(_build, BF16_FUNCTIONS)
     print(f"HGMMA instructions in the library's SASS: {out['hgmma']}")
     check(all(n > 0 for n in out["hgmma"].values()), f"a bf16 kernel has no HGMMA: {out['hgmma']}")
-    out["gemm_yardstick_ms"] = gemm_yardstick(torch, batch)
+    out["gemm_yardstick_ms"] = gemm_yardstick(torch, batch, torch.bfloat16)
 
     # (b) bf16 against float32, family by family.
     rates = {"vggish": (16000, 1), "pann-16k": (16000, 1), "clap": (48000, 1),
@@ -1716,6 +1814,7 @@ def main() -> int:
     vggish = vggish_kernel_phase(torch, np, cuda_frontend, fe, batch)
     pann = pann_kernel_phase(torch, np, cuda_pann_frontend, fe, batch)
     swin = swin_kernel_phase(torch, np, window_attn, clap, batch)
+    swin_f32 = float32_swin_checks(torch, window_attn, clap, _build, batch)
 
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
@@ -1969,8 +2068,15 @@ def main() -> int:
                 "bound_ms": swin[name]["bound_ms"],
                 "bound_by": swin[name]["bound_by"],
                 "bound_ms_fp32": swin[name]["bound_ms_fp32"],
+                "tflops": swin[name]["tflops"],
+                "device_ms": swin[name]["device_ms"],
+                "split_ms": swin[name]["split_ms"],
                 "library_ms": None,
-                "arith": "3xtf32 mma",
+                "arith": "3xtf32 wgmma (attention: mma.sync)",
+                "hgmma": swin_f32["hgmma"][name],
+                "ragged": [r for r in swin_f32["ragged"] if r["kernel"] == name],
+                **({"gemm_yardstick_ms": swin_f32["gemm_yardstick_ms"]}
+                   if name == "window_attention_fused" else {}),
                 "bound_flops_per_s": TF32X3_FLOPS,
                 "at": "one 64-clip CLAP chunk: every launch of a forward",
                 "shapes": swin[name]["shapes"],
@@ -1993,6 +2099,7 @@ def main() -> int:
                 "plain_ms": numerics["kernels"][name]["plain_ms"],
                 "bound_ms": numerics["kernels"][name]["bound_ms"],
                 "bound_by": numerics["kernels"][name]["bound_by"],
+                "tflops": numerics["kernels"][name]["tflops"],
                 "library_ms": None,
                 "arith": "bf16 wgmma (attention: mma.sync)",
                 "hgmma": numerics["hgmma"][f"{name}[bf16]"],

@@ -1,0 +1,95 @@
+// Hopper (sm_90a) building blocks for the float32 kernels of window_attn.cu: warpgroup matrix
+// multiplies (wgmma) with TF32 operands and the 3xTF32 split that keeps float32 accuracy. The
+// mbarrier ring, TMA and register hand-over helpers are wgmma_bf16.cuh's (namespace hopper).
+//
+// TF32 wgmma (m64nNk8, float32 sums) differs from bf16's in three ways that shape the kernels:
+// - Both shared-memory operands must be K-major: there is no transpose bit. So a weight W [in,
+//   out] is staged from its transpose Wt [out, in] (split_weights_kernel forms it), one row of
+//   32 floats (128 bytes) per output column and slab: TMA's 128-byte swizzle, the layout of
+//   wgmma_bf16.cuh's desc_a_sw128, whose k8 step moves 32 bytes along the row as bf16's k16 does.
+// - A k8 step's A fragment in registers is mma.sync.m16n8k8's: warp w of the warpgroup holds rows
+//   16 w + lane / 4 (a[0], a[2]) and 16 w + lane / 4 + 8 (a[1], a[3]), columns lane % 4 (a[0],
+//   a[1]) and lane % 4 + 4 (a[2], a[3]).
+// - The tensor core reads only the top 19 bits of a float32 operand (sign, exponent, 10
+//   mantissa bits) and drops the rest: a value that is not TF32-exact is truncated, not rounded.
+//   So both halves of the split are formed explicitly (split_tf32) before they reach wgmma.
+//
+// The accumulator layout is the f32 one of wgmma_bf16.cuh: d[4 j + 2 h + e] is row
+// 16 w + lane / 4 + 8 h, column 8 j + 2 (lane % 4) + e.
+
+#pragma once
+
+#include <stdint.h>
+
+#include "wgmma_bf16.cuh"
+
+namespace hopper {
+namespace tf32 {
+
+// a = hi + lo with hi = tf32(a) and lo = tf32(a - hi), both rounded to nearest with ties away
+// from zero by two integer operations (add half a TF32 ulp to the magnitude bits, clear the 13
+// low bits): the bits of cvt.rna.tf32.f32 for every finite value, at the integer rate (the
+// conversion instruction issues at a quarter of it). a_hi b_hi + a_hi b_lo + a_lo b_hi is then
+// within about 2^-21 of a b, where a_hi b_hi alone (1xTF32) is within 2^-11.
+__device__ __forceinline__ void split_tf32(float a, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(a) + 0x1000u) & 0xffffe000u;
+  lo = (__float_as_uint(a - __uint_as_float(hi)) + 0x1000u) & 0xffffe000u;
+}
+
+// d = A @ B (accumulate == 0) or d += A @ B, m64nNk8 with TF32 operands and float32 sums: A from
+// registers (the fragment above), B K-major from shared memory (descriptor db).
+template <int N>
+__device__ __forceinline__ void mma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db,
+                                       int accumulate);
+
+template <>
+__device__ __forceinline__ void mma_rs<96>(float (&d)[48], const uint32_t (&a)[4], uint64_t db,
+                                            int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, "
+      "{%48, %49, %50, %51}, %52, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void mma_rs<128>(float (&d)[64], const uint32_t (&a)[4], uint64_t db,
+                                            int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+// Keeps the compiler from reusing an A fragment's registers while a wgmma that reads them is in
+// flight: call after the wait that retires it.
+template <int R>
+__device__ __forceinline__ void fence_frag(uint32_t (&a)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(a[i])::"memory");
+}
+
+}  // namespace tf32
+}  // namespace hopper

@@ -141,11 +141,19 @@ def load_library() -> ctypes.CDLL:
         ctypes.c_void_p,  # cudaStream_t
     ]
     lib.pann_logmel_launch.restype = ctypes.c_int
+    lib.tf32_split_launch.argtypes = [
+        ctypes.c_void_p,  # w [in, out]
+        ctypes.c_int,  # in
+        ctypes.c_int,  # out
+        ctypes.c_void_p,  # [2, out, in]: hi, lo of w^T
+        ctypes.c_void_p,  # cudaStream_t
+    ]
+    lib.tf32_split_launch.restype = ctypes.c_int
     attention_args = [
         ctypes.c_void_p,  # x
-        ctypes.c_void_p,  # w_qkv
+        ctypes.c_void_p,  # w_qkv (float32: its tf32_split form)
         ctypes.c_void_p,  # b_qkv
-        ctypes.c_void_p,  # w_proj
+        ctypes.c_void_p,  # w_proj (float32: its tf32_split form)
         ctypes.c_void_p,  # b_proj
         ctypes.c_void_p,  # bias
         ctypes.c_void_p,  # mask
@@ -153,37 +161,55 @@ def load_library() -> ctypes.CDLL:
         ctypes.c_void_p,  # gamma1
         ctypes.c_void_p,  # beta1
     ]
-    lib.window_attention_launch.argtypes = [
-        *attention_args,
-        ctypes.c_void_p,  # a scratch (LN1(x), then attn)
-        ctypes.c_void_p,  # qkv scratch
-        ctypes.c_void_p,  # out
+    tail = [
         ctypes.c_int,  # windows (BW)
         ctypes.c_int,  # C
         ctypes.c_int,  # heads
         ctypes.c_void_p,  # cudaStream_t
     ]
-    lib.window_attention_launch.restype = ctypes.c_int
-    block_args = [
-        *attention_args,
+    mlp_args = [
         ctypes.c_void_p,  # gamma2
         ctypes.c_void_p,  # beta2
-        ctypes.c_void_p,  # w_fc1
+        ctypes.c_void_p,  # w_fc1 (float32: its tf32_split form)
         ctypes.c_void_p,  # b_fc1
-        ctypes.c_void_p,  # w_fc2
+        ctypes.c_void_p,  # w_fc2 (float32: its tf32_split form)
         ctypes.c_void_p,  # b_fc2
-        ctypes.c_void_p,  # attn scratch
-        ctypes.c_void_p,  # out
-        ctypes.c_int,  # windows (BW)
-        ctypes.c_int,  # C
-        ctypes.c_int,  # heads
-        ctypes.c_void_p,  # cudaStream_t
     ]
-    lib.swin_block_launch.argtypes = block_args
-    lib.swin_block_launch.restype = ctypes.c_int
-    # The bf16 instances (csrc/window_attn_bf16.cu) take the same arguments.
-    for name in ("window_attention", "swin_block"):
-        entry = getattr(lib, f"{name}_bf16_launch")
-        entry.argtypes = getattr(lib, f"{name}_launch").argtypes
+    signatures = {
+        # float32 (csrc/window_attn.cu)
+        "window_attention_launch": [
+            *attention_args,
+            ctypes.c_void_p,  # stats scratch [M, 2]
+            ctypes.c_void_p,  # a scratch (attn)
+            ctypes.c_void_p,  # qkv scratch
+            ctypes.c_void_p,  # out
+            *tail,
+        ],
+        "swin_block_launch": [
+            *attention_args, *mlp_args,
+            ctypes.c_void_p,  # stats scratch [M, 2]
+            ctypes.c_void_p,  # work scratch [M, 4C]
+            ctypes.c_void_p,  # x2 scratch [M, C]
+            ctypes.c_void_p,  # out
+            *tail,
+        ],
+        # bf16 (csrc/window_attn_bf16.cu)
+        "window_attention_bf16_launch": [
+            *attention_args,
+            ctypes.c_void_p,  # a scratch (LN1(x), then attn)
+            ctypes.c_void_p,  # qkv scratch
+            ctypes.c_void_p,  # out
+            *tail,
+        ],
+        "swin_block_bf16_launch": [
+            *attention_args, *mlp_args,
+            ctypes.c_void_p,  # attn scratch
+            ctypes.c_void_p,  # out
+            *tail,
+        ],
+    }
+    for name, argtypes in signatures.items():
+        entry = getattr(lib, name)
+        entry.argtypes = argtypes
         entry.restype = ctypes.c_int
     return lib

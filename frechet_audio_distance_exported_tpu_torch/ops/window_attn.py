@@ -25,6 +25,12 @@ csrc/window_attn_bf16.cu (bfloat16), whose headers say what bounds them and
 how they are laid out, or raises. There is no fallback from one to the
 other, and no TPU tile argument (`group`).
 
+A float32 call forms each weight's 3xTF32 split on the card first
+(tf32_split: [in, out] -> [2, out, in], hi and lo of the transpose, the
+K-major layout TF32 wgmma takes), once per weight a call: the weights are
+constants of the forward pass, and the kernels then stage them with no
+arithmetic.
+
 A call is float32 throughout, or bfloat16 throughout but for a float32
 mask: then the kernels compute what the Pallas kernels compute for a bf16
 x (_attention_half L35-83, _block_kernel L114-146). Products take bf16
@@ -58,7 +64,8 @@ KERNEL_HEAD_GROUP = 4
 # (CLAP stages 1-3); stage 4 runs window_attention_fused.
 KERNEL_BLOCK_WIDTHS = (96, 192, 384)
 KERNEL_ALIGN = 16  # bytes: the kernels stream their operands with 16-byte cp.async or TMA
-# window_attention_fused's proj GEMM puts its 64-token row tiles on gridDim.y.
+# window_attention_fused's bf16 GEMMs put their 128-token row tiles on
+# gridDim.y; the float32 kernels take the same limit.
 KERNEL_MAX_WINDOWS = 65535
 
 
@@ -125,10 +132,55 @@ def swin_block_fused_reference(
     return (x2 + (torch.matmul(hidden, w_fc2) + b_fc2)).to(x_windows.dtype)
 
 
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """float32 rounded to TF32 (10 mantissa bits), to nearest with ties away
+    from zero: add half a TF32 ulp to the magnitude bits, then clear the 13
+    low bits (the kernels' split_tf32, the bits of cvt.rna.tf32.f32)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def tf32_split_reference(w: torch.Tensor) -> torch.Tensor:
+    """Plain torch version of tf32_split."""
+    wt = w.t().contiguous()
+    hi = _tf32(wt)
+    return torch.stack([hi, _tf32(wt - hi)])
+
+
+def tf32_split(w: torch.Tensor) -> torch.Tensor:
+    """The 3xTF32 form of a float32 weight w [in, out] that the float32
+    kernels take: [2, out, in], hi = tf32(w^T) and lo = tf32(w^T - hi), so
+    that hi + lo is w^T within 2^-22 relative and each half is TF32-exact.
+    CPU tensor: the plain version; CUDA tensor: split_weights_kernel
+    (csrc/window_attn.cu), which gives the same bits. in and out must be
+    multiples of 32."""
+    if w.dim() != 2 or w.dtype != torch.float32:
+        raise ValueError(f"tf32_split takes a float32 [in, out] matrix, got {w.dtype} "
+                         f"{tuple(w.shape)}")
+    k, n = w.shape
+    if k % 32 or n % 32 or k == 0 or n == 0:
+        raise ValueError(f"tf32_split takes in and out that are multiples of 32, got {k}, {n}")
+    if w.device.type == "cpu":
+        return tf32_split_reference(w)
+    if w.device.type != "cuda":
+        raise ValueError(f"tf32_split runs on CPU or CUDA tensors, got {w.device}")
+    if not w.is_contiguous() or w.data_ptr() % KERNEL_ALIGN:
+        raise ValueError(f"tf32_split needs a contiguous, {KERNEL_ALIGN}-byte aligned matrix "
+                         "on the card")
+    out = torch.empty((2, n, k), dtype=w.dtype, device=w.device)
+    lib = _build.load_library()
+    with torch.cuda.device(w.device):
+        stream = ctypes.c_void_p(torch.cuda.current_stream(w.device).cuda_stream)
+        err = lib.tf32_split_launch(*_ptrs(w), k, n, *_ptrs(out), stream)
+    if err != 0:
+        raise RuntimeError(f"tf32_split kernel launch failed with cudaError {err}")
+    return out
+
+
 def attention_scratch(bw: int, c: int, device, dtype: torch.dtype = torch.float32) -> dict:
     """The device scratch of window_attention_fused's kernels, allocated per
-    call in the call's dtype: a [M, C] (LN1(x), then attn) and qkv [M, 3C],
-    M = BW * 64 tokens."""
+    call in the call's dtype: a [M, C] (attn; bf16: LN1(x) first) and qkv
+    [M, 3C], M = BW * 64 tokens."""
     m = bw * KERNEL_TOKENS
     kind = dict(dtype=dtype, device=device)
     return {"a": torch.empty((m, c), **kind), "qkv": torch.empty((m, 3 * c), **kind)}
@@ -216,10 +268,12 @@ def _run(name: str, x: torch.Tensor, operands: dict, heads: int, num_windows: in
     queues the kernels' launches and returns a cudaError code.
 
     launch allocates the kernels' scratch in device memory (swin_block_fused:
-    the attention output attn, with x2 and the hidden layer kept on chip;
-    window_attention_fused: attention_scratch; csrc/window_attn.cu says
-    why). Freed when launch returns, it is safe: the caching allocator reuses
-    a block only for work queued after the kernels on the same stream."""
+    float32 the LN statistics, qkv, attn, x2 and the hidden layer, bf16 only
+    attn, with x2 and the hidden layer kept on chip; window_attention_fused:
+    attention_scratch; the kernels' sources say why) and, for float32, the
+    weights' tf32_split forms. Freed when launch returns, it is safe: the
+    caching allocator reuses a block only for work queued after the kernels
+    on the same stream."""
     _check(name, x, heads, num_windows, operands)
     if x.device.type == "cpu":
         return reference(x, **operands, heads=heads, num_windows=num_windows)
@@ -268,9 +322,19 @@ def launch_attention(lib, x, operands: dict, heads: int, scratch: dict, out, str
     bw, _, c = x.shape
     _check_scratch(scratch, bw, c, x.device, x.dtype)
     o = operands
-    entry = (lib.window_attention_launch if x.dtype == torch.float32
-             else lib.window_attention_bf16_launch)
-    return entry(
+    if x.dtype == torch.float32:
+        # The splits and the LN1 statistics ([M, 2]: mean, 1 / sqrt(var + eps)) are held until
+        # the launches are queued: a split freed earlier could be handed to the next split,
+        # which the stream runs before the kernels that read this one.
+        w_qkv, w_proj = tf32_split(o["w_qkv"]), tf32_split(o["w_proj"])
+        stats = torch.empty((bw * KERNEL_TOKENS, 2), dtype=x.dtype, device=x.device)
+        return lib.window_attention_launch(
+            *_ptrs(x, w_qkv, o["b_qkv"], w_proj, o["b_proj"], o["bias"], o["mask"]),
+            o["mask"].shape[0],
+            *_ptrs(o["gamma1"], o["beta1"], stats, scratch["a"], scratch["qkv"], out),
+            bw, c, heads, stream,
+        )
+    return lib.window_attention_bf16_launch(
         *_ptrs(x, o["w_qkv"], o["b_qkv"], o["w_proj"], o["b_proj"], o["bias"], o["mask"]),
         o["mask"].shape[0],
         *_ptrs(o["gamma1"], o["beta1"], scratch["a"], scratch["qkv"], out),
@@ -292,10 +356,24 @@ def swin_block_fused(
 
     def launch(lib, out, stream):
         bw, _, c = x_windows.shape
+        if x_windows.dtype == torch.float32:
+            # Scratch: the LN statistics of each token (LN1, then LN2), qkv and attn (then the
+            # hidden layer) [M, 4C], and x2 [M, C].
+            m = bw * KERNEL_TOKENS
+            kind = dict(dtype=torch.float32, device=x_windows.device)
+            stats, work, x2 = (torch.empty(shape, **kind)
+                               for shape in ((m, 2), (m, 4 * c), (m, c)))
+            # Every split is held until the launches are queued (see launch_attention).
+            splits = [tf32_split(w) for w in (w_qkv, w_proj, w_fc1, w_fc2)]
+            return lib.swin_block_launch(
+                *_ptrs(x_windows, splits[0], b_qkv, splits[1], b_proj, bias, mask),
+                mask.shape[0],
+                *_ptrs(gamma1, beta1, gamma2, beta2, splits[2], b_fc1, splits[3], b_fc2, stats,
+                       work, x2, out),
+                bw, c, heads, stream,
+            )
         attn = torch.empty_like(x_windows)
-        entry = (lib.swin_block_launch if x_windows.dtype == torch.float32
-                 else lib.swin_block_bf16_launch)
-        return entry(
+        return lib.swin_block_bf16_launch(
             *_ptrs(x_windows, w_qkv, b_qkv, w_proj, b_proj, bias, mask), mask.shape[0],
             *_ptrs(gamma1, beta1, gamma2, beta2, w_fc1, b_fc1, w_fc2, b_fc2, attn, out),
             bw, c, heads, stream,

@@ -17,10 +17,13 @@ to 2-3e-6 at C = 96, and C = 768 sums eight times longer.
 
 The CUDA kernels run only on the card: their cases carry the `cuda` marker
 and skip without one. Their arithmetic, 3xTF32 products on the tensor cores
-(csrc/window_attn.cu), is emulated here in torch at every GEMM shape they
-run, against float64: the per-window products of swin_block_fused and
-window_attention_fused's token-tile GEMMs at stage 4; the wrapper's checks
-of window_attention_fused's scratch are held to what the kernels take.
+(csrc/window_attn.cu), is emulated here against float64 at every GEMM shape
+they run: in torch, each product folded once a 32-deep slab, and in a numpy
+float32 model of gemm_tf32_kernel (the weights split once by tf32_split,
+K-major; the activations split by split_tf32's integer bits after the
+LayerNorm applied on load; the slab fold; the epilogues). The plain
+tf32_split and the wrapper's checks (the split's refusals, the scratch of
+window_attention_fused, every card case) are held to what the kernels take.
 """
 
 import numpy as np
@@ -103,10 +106,10 @@ def _tf32(x: torch.Tensor) -> torch.Tensor:
     return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
 
 
-def _tf32_product(a: torch.Tensor, b: torch.Tensor, split: bool, fold: int = 8) -> torch.Tensor:
-    """a @ b as the kernels form it, in folds of `fold` deep (8: one k-step,
-    as swin_block_fused's kernels fold; 32: one slab, as window_attention_fused's
-    GEMMs fold): each fold's products summed exactly (float64),
+def _tf32_product(a: torch.Tensor, b: torch.Tensor, split: bool, fold: int = 32) -> torch.Tensor:
+    """a @ b as the kernels form it, in folds of `fold` deep (32: one slab,
+    as gemm_tf32_kernel folds; 8: one k-step, as the attention's mma.sync
+    products fold): each fold's products summed exactly (float64),
     rounded to float32 and added to a float32 accumulator. split: 3xTF32
     (a_lo b_hi + a_hi b_lo + a_hi b_hi with hi = tf32(x), lo = tf32(x - hi));
     otherwise plain 1xTF32 (a_hi b_hi)."""
@@ -129,10 +132,12 @@ def _tf32_product(a: torch.Tensor, b: torch.Tensor, split: bool, fold: int = 8) 
 
 @pytest.mark.parametrize("gemm", sorted(GEMMS))
 def test_3xtf32_products_keep_float32_accuracy(gemm):
-    """At each GEMM shape of the kernels, inputs scaled as the smoke run's (x
-    after LayerNorm about 1, weights 0.05): the 3xTF32 product is within 2e-6
-    of a float64 matmul, relative to its largest entry, and 1xTF32 is not
-    (about 1e-3): the split is what keeps the port's float32 rule."""
+    """At each GEMM shape of the kernels, on one window's 64 rows, inputs
+    scaled as the smoke run's (x after LayerNorm about 1, weights 0.05): the
+    3xTF32 product, folded once a 32-deep slab as gemm_tf32_kernel folds, is
+    within 2e-6 of a float64 matmul, relative to its largest entry, and
+    1xTF32 is not (about 1e-3): the split is what keeps the port's float32
+    rule."""
     k, n = GEMMS[gemm]
     rng = np.random.default_rng(k + n)
     a = torch.from_numpy(rng.standard_normal((64, k)).astype(np.float32))
@@ -175,6 +180,174 @@ def test_tf32_rounding_is_round_to_nearest_ties_away():
                       1.0 + 3 * one_ulp / 2], dtype=torch.float32)
     expected = torch.tensor([1.0, 1.0 + one_ulp, 1.0, -(1.0 + one_ulp), 1.0 + 2 * one_ulp])
     assert torch.equal(_tf32(x), expected)
+
+
+# ---------------------------------------------------------------------------
+# gemm_tf32_kernel's arithmetic as a numpy float32 model
+# ---------------------------------------------------------------------------
+
+def _split_np(a: np.ndarray) -> tuple:
+    """(hi, lo) of float32 a by split_tf32's two integer operations each
+    (csrc/wgmma_tf32.cuh): hi = tf32(a), lo = tf32(a - hi), to nearest with
+    ties away from zero."""
+    def rna(v):
+        bits = np.ascontiguousarray(v, np.float32).view(np.uint32)
+        return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+    hi = rna(a)
+    return hi, rna((a - hi).astype(np.float32))
+
+
+def _gemm_model(a, w_split, bias, stats=None, gamma=None, beta=None, on_load=None,
+                residual=None):
+    """gemm_tf32_kernel in float32: op(a) as A is read (on_load "ln": (v -
+    mean) * rstd * gamma + beta; "gelu": GELU(v); both float32), split in
+    registers; the weight as tf32_split gives it ([2, N, K], K-major); per
+    32-deep slab the three products (a_lo b_hi + a_hi b_lo + a_hi b_hi)
+    summed exactly and rounded once (a fresh accumulator), folded into a
+    float32 total; then + bias (and the residual), in float32."""
+    if on_load == "ln":
+        mean, rstd = stats[:, :1], stats[:, 1:]
+        a = ((a - mean) * rstd * gamma + beta).astype(np.float32)
+    elif on_load == "gelu":
+        a = _gelu(torch.from_numpy(a)).numpy()
+    a_hi, a_lo = _split_np(a)
+    b_hi, b_lo = (w_split[i].T.astype(np.float64) for i in (0, 1))
+    total = np.zeros((a.shape[0], w_split.shape[1]), np.float32)
+    for k0 in range(0, a.shape[1], 32):
+        sl = slice(k0, k0 + 32)
+        hi, lo = a_hi[:, sl].astype(np.float64), a_lo[:, sl].astype(np.float64)
+        part = lo @ b_hi[sl] + hi @ b_lo[sl] + hi @ b_hi[sl]
+        total = (total + part.astype(np.float32)).astype(np.float32)
+    out = (total + bias).astype(np.float32)
+    if residual is not None:
+        out = (residual + out).astype(np.float32)
+    return out
+
+
+def _gelu(t):
+    """Exact (erf) GELU, torch's, on a tensor."""
+    return torch.nn.functional.gelu(t)
+
+
+def _stats(x: np.ndarray) -> np.ndarray:
+    """row_stats_kernel's (mean, 1 / sqrt(var + eps)), two-pass, in float32."""
+    mean = x.mean(axis=1, dtype=np.float32)
+    var = ((x - mean[:, None]) ** 2).mean(axis=1, dtype=np.float32)
+    return np.stack([mean, 1.0 / np.sqrt(var + np.float32(1e-5))], axis=1).astype(np.float32)
+
+
+# (kernel's GEMM) -> (input width, output width, applied on load, residual, input scale) at
+# stage 3's width (C 384) and stage 4's (C 768) on one [128, *] token tile. fc2 reads fc1's
+# output before GELU (about 1) and applies GELU as it loads it.
+MODEL_GEMMS = {
+    "stage3_qkv": (384, 3 * 384, "ln", False, 0.5),
+    "stage3_proj": (384, 384, None, True, 0.3),
+    "stage3_fc1": (384, 4 * 384, "ln", False, 0.5),
+    "stage3_fc2": (4 * 384, 384, "gelu", True, 1.0),
+    "stage4_qkv": (768, 3 * 768, "ln", False, 0.5),
+    "stage4_proj": (768, 768, None, True, 0.3),
+}
+
+
+@pytest.mark.parametrize("gemm", sorted(MODEL_GEMMS))
+def test_wgmma_3xtf32_gemm_model_keeps_float32_accuracy(gemm):
+    """The model of gemm_tf32_kernel, with the weight split once by the
+    plain tf32_split, is within SPLIT_RTOL of float64 (the LayerNorm, the
+    product, the bias and the epilogue in float64 on the same inputs),
+    relative to the largest output, at each GEMM of stage 3 and stage 4."""
+    k, n, on_load, has_residual, scale = MODEL_GEMMS[gemm]
+    rng = np.random.default_rng(k + n)
+    a = (scale * rng.standard_normal((128, k))).astype(np.float32)
+    w = (0.05 * rng.standard_normal((k, n))).astype(np.float32)
+    bias = (0.01 * rng.standard_normal(n)).astype(np.float32)
+    gamma = (1.0 + 0.1 * rng.standard_normal(k)).astype(np.float32)
+    beta = (0.1 * rng.standard_normal(k)).astype(np.float32)
+    residual = (0.5 * rng.standard_normal((128, n))).astype(np.float32) if has_residual else None
+    w_split = window_attn.tf32_split(torch.from_numpy(w)).numpy()
+    stats = _stats(a) if on_load == "ln" else None
+    ours = _gemm_model(a, w_split, bias, stats, gamma, beta, on_load, residual)
+
+    exact = a.astype(np.float64)
+    if on_load == "ln":
+        mean = exact.mean(axis=1, keepdims=True)
+        var = ((exact - mean) ** 2).mean(axis=1, keepdims=True)
+        exact = (exact - mean) / np.sqrt(var + 1e-5) * gamma + beta
+    elif on_load == "gelu":
+        exact = _gelu(torch.from_numpy(exact)).numpy()
+    exact = exact @ w.astype(np.float64) + bias
+    if has_residual:
+        exact = residual + exact
+    err = float(np.abs(ours - exact).max()) / float(np.abs(exact).max())
+    assert err <= SPLIT_RTOL, f"{gemm}: {err:.3e}"
+
+
+@pytest.mark.parametrize("gemm", sorted(GEMMS))
+def test_tf32_split_plain_version_is_the_kernels_layout(gemm):
+    """tf32_split on the CPU: [2, out, in], hi = tf32(w^T) and lo =
+    tf32(w^T - hi) (the test's own rounding), each TF32-exact (13 low bits
+    clear), hi + lo within 2^-22 of w^T, and the numpy model's split of w^T
+    gives the same bits."""
+    k, n = GEMMS[gemm]
+    rng = np.random.default_rng(k * n)
+    w = torch.from_numpy((0.05 * rng.standard_normal((k, n))).astype(np.float32))
+    split = window_attn.tf32_split(w)
+    assert split.shape == (2, n, k) and split.dtype == torch.float32 and split.is_contiguous()
+    hi, lo = split
+    assert torch.equal(hi, _tf32(w.T.contiguous()))
+    assert torch.equal(lo, _tf32(w.T.contiguous() - hi))
+    assert not bool((split.view(torch.int32) & 0x1FFF).any())
+    rel = ((hi.double() + lo.double() - w.T.double()).abs() / w.T.double().abs().clamp_min(1e-30))
+    assert float(rel.max()) <= 2.0 ** -22
+    np_hi, np_lo = _split_np(w.T.contiguous().numpy())
+    assert np.array_equal(np_hi, hi.numpy()) and np.array_equal(np_lo, lo.numpy())
+
+
+@pytest.mark.parametrize("bad, message", [
+    (lambda w: w.double(), "float32"),
+    (lambda w: w[0], "float32 \\[in, out\\]"),
+    (lambda w: w[:, :48], "multiples of 32"),
+    (lambda w: w[:80], "multiples of 32"),
+    (lambda w: w.to("meta"), "CPU or CUDA"),
+])
+def test_tf32_split_refuses_what_the_kernel_does_not_take(bad, message):
+    w = torch.zeros((96, 288), dtype=torch.float32)
+    with pytest.raises(ValueError, match=message):
+        window_attn.tf32_split(bad(w))
+
+
+# name -> (kernel, C, heads, windows per image, shifted, images): every CLAP width, and ragged
+# BWs (nine windows an image, a 24 x 24 token grid shifted: nine masks, window w using
+# mask[w % 9]) whose token count leaves the GEMMs' last 128-row tile half empty.
+CARD_CASES = {
+    "block_c96": ("swin_block_fused", 96, 4, 64, True, 2),
+    "block_c96_ragged": ("swin_block_fused", 96, 4, 9, True, 7),
+    "block_c192": ("swin_block_fused", 192, 8, 16, True, 4),
+    "block_c192_ragged": ("swin_block_fused", 192, 8, 9, True, 3),
+    "block_c384": ("swin_block_fused", 384, 16, 4, False, 8),
+    "block_c384_ragged": ("swin_block_fused", 384, 16, 9, True, 1),
+    "attention_c768": ("window_attention_fused", 768, 32, 1, False, 4),
+    "attention_c768_ragged": ("window_attention_fused", 768, 32, 9, True, 3),
+    "attention_c96_ragged": ("window_attention_fused", 96, 4, 9, True, 1),
+    "attention_c384": ("window_attention_fused", 384, 16, 4, True, 2),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CARD_CASES))
+def test_float32_kernel_checks_pass_the_card_cases(case):
+    """Every float32 card case below passes the wrapper's checks, and each
+    weight of it the split's, on the CPU (the checks read shapes, strides and
+    addresses, not the device)."""
+    kernel, c, heads, nw, shifted, images = CARD_CASES[case]
+    args = operands(kernel, make_inputs(c, heads, nw, shifted, images, seed=4))
+    x = args.pop("x_windows")
+    window_attn._check(kernel, x, heads, nw, args)
+    window_attn._check_kernel_shapes(kernel, x, heads, args)
+    for key in ("w_qkv", "w_proj", "w_fc1", "w_fc2"):
+        if key in args:
+            assert window_attn.tf32_split(args[key]).shape == (2, *args[key].T.shape)
+    assert x.shape == (images * nw, N, c) and (images * nw * N) % 128 == (
+        64 if "ragged" in case else 0)
 
 
 @pytest.fixture
@@ -328,3 +501,47 @@ def test_attention_intermediates_on_the_card(cuda_device):
     assert float((scratch["qkv"] - qkv).abs().max()) <= CARD_ATOL
     attn = torch.matmul(scratch["a"], args["w_proj"]) + args["b_proj"] + x.reshape(-1, c)
     assert float((attn - out.reshape(-1, c)).abs().max()) <= CARD_ATOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(CARD_CASES))
+def test_float32_kernel_matches_plain_version_at_every_width(cuda_device, case):
+    """Each float32 kernel against its plain version at every CLAP width and
+    at ragged BWs, within CARD_ATOL; one launch counted, under its own key
+    only."""
+    kernel, c, heads, nw, shifted, images = CARD_CASES[case]
+    args = operands(kernel, make_inputs(c, heads, nw, shifted, images, seed=5), cuda_device)
+    before = launches.read()
+    out = getattr(window_attn, kernel)(**args, heads=heads, num_windows=nw)
+    torch.cuda.synchronize()
+    after = launches.read()
+    assert after[kernel] == before[kernel] + 1
+    assert {k: v for k, v in after.items() if k != kernel} == {
+        k: v for k, v in before.items() if k != kernel}
+    ref = getattr(window_attn, f"{kernel}_reference")(**args, heads=heads, num_windows=nw)
+    assert out.shape == ref.shape and bool(torch.isfinite(out).all())
+    assert float((out - ref).abs().max()) <= CARD_ATOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gemm", sorted(GEMMS))
+def test_tf32_split_kernel_gives_the_plain_bits(cuda_device, gemm):
+    k, n = GEMMS[gemm]
+    rng = np.random.default_rng(k + 7 * n)
+    w = torch.from_numpy((0.05 * rng.standard_normal((k, n))).astype(np.float32))
+    ours = window_attn.tf32_split(w.to(cuda_device))
+    torch.cuda.synchronize()
+    assert torch.equal(ours.cpu(), window_attn.tf32_split_reference(w))
+
+
+@pytest.mark.cuda
+def test_float32_block_kernel_is_deterministic_and_leaves_its_inputs(cuda_device):
+    """Two calls give the same bits (no atomics, no race between the
+    warpgroups), and the inputs are not written."""
+    args = operands("swin_block_fused", make_inputs(192, 8, 9, True, 3, seed=6), cuda_device)
+    copies = {k: v.clone() for k, v in args.items()}
+    first = window_attn.swin_block_fused(**args, heads=8, num_windows=9)
+    second = window_attn.swin_block_fused(**args, heads=8, num_windows=9)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    assert all(torch.equal(args[k], copies[k]) for k in args)
