@@ -12,6 +12,8 @@ The counterpart of frechet_audio_distance_exported_tpu/__main__.py, with
         BG_DIR EVAL_DIR --mesh [--device-stats] [--device cpu]
 
 Only rank 0 prints the result. The exit code is 0, or 1 on the -1 sentinel.
+With FAD_TPU_TRACE=<dir>, the scoring runs under utils.profiling.trace(),
+which writes a Chrome trace of it, with the spans of score(), into <dir>.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import json
 import sys
 
 from . import FrechetAudioDistance, registry
+from .utils import profiling
 
 
 def main(argv=None) -> int:
@@ -66,13 +69,14 @@ def main(argv=None) -> int:
             device=args.device,
             mesh=mesh,
         )
-        score = fad.score(
-            args.background_dir,
-            args.eval_dir,
-            background_embds_path=args.background_embds_path,
-            eval_embds_path=args.eval_embds_path,
-            device_stats=args.device_stats,
-        )
+        with profiling.trace():
+            score = fad.score(
+                args.background_dir,
+                args.eval_dir,
+                background_embds_path=args.background_embds_path,
+                eval_embds_path=args.eval_embds_path,
+                device_stats=args.device_stats,
+            )
     finally:
         if own_group:
             dist.destroy_process_group()

@@ -12,6 +12,7 @@ encodec-48k) and CLAP.
 
 from __future__ import annotations
 
+import functools
 import os
 from typing import List, Optional
 
@@ -27,7 +28,7 @@ from .models.vggish import VGGish
 from .ops import stats as stats_ops
 from .parallel.embed import merge_stats
 from .pipeline import EmbeddingPipeline, StatsSink
-from .utils import audio_io
+from .utils import audio_io, profiling
 from .utils import weights as weight_store
 
 # Re-exported registry tables (JAX fad.py:31-33).
@@ -245,22 +246,24 @@ class FrechetAudioDistance:
         empty-directory -1 is decided on the global counts, and a failure on
         any rank makes every rank return -1.
         """
-        try:
-            if device_stats and not background_embds_path and not eval_embds_path:
-                return self._score_device_stats(background_dir, eval_dir, dtype)
-            if device_stats:
-                print(
-                    "[FAD-TORCH] Warning: device_stats=True is incompatible with "
-                    "background_embds_path/eval_embds_path (streamed statistics "
-                    "never materialize embeddings); falling back to the host-"
-                    "stats path with .npy caching."
-                )
-            embds_background = self._dir_embeddings(background_dir, dtype, background_embds_path)
-            embds_eval = self._dir_embeddings(eval_dir, dtype, eval_embds_path)
-            return self._agreed(lambda: self._score_embeddings(embds_background, embds_eval))
-        except Exception as e:
-            print(f"[FAD-TORCH] An error occurred: {e}")
-            return -1
+        with profiling.span("score"):
+            try:
+                if device_stats and not background_embds_path and not eval_embds_path:
+                    return self._score_device_stats(background_dir, eval_dir, dtype)
+                if device_stats:
+                    print(
+                        "[FAD-TORCH] Warning: device_stats=True is incompatible with "
+                        "background_embds_path/eval_embds_path (streamed statistics "
+                        "never materialize embeddings); falling back to the host-"
+                        "stats path with .npy caching."
+                    )
+                embds_background = self._dir_embeddings(
+                    background_dir, dtype, background_embds_path)
+                embds_eval = self._dir_embeddings(eval_dir, dtype, eval_embds_path)
+                return self._agreed(lambda: self._score_embeddings(embds_background, embds_eval))
+            except Exception as e:
+                print(f"[FAD-TORCH] An error occurred: {e}")
+                return -1
 
     def _dir_embeddings(self, dir: str, dtype: str, cache_path: Optional[str]) -> np.ndarray:
         """One directory's embedding matrix: read from cache_path where that
@@ -324,7 +327,8 @@ class FrechetAudioDistance:
         return self.calculate_frechet_distance(mu_background, sigma_background, mu_eval, sigma_eval)
 
     def _dir_paths(self, dir: str) -> List[str]:
-        return [os.path.join(dir, f) for f in audio_io.list_audio_files(dir)]
+        with profiling.span("list"):
+            return [os.path.join(dir, f) for f in audio_io.list_audio_files(dir)]
 
     def _load_audio_paths(self, paths: List[str], dtype: str) -> List[np.ndarray]:
         return audio_io.load_audio_paths(
@@ -340,18 +344,29 @@ class FrechetAudioDistance:
 
         pool = ThreadPool(self.audio_load_worker)
 
-        def load(p):
-            return audio_io.load_audio(p, self.sample_rate, self.channels, dtype)
+        def load(wait, p):
+            with profiling.span("decode", parent=wait):
+                return audio_io.load_audio(p, self.sample_rate, self.channels, dtype)
+
+        def collect(wait, result):
+            with wait:
+                return result.get()
 
         try:
             pending = None
             for i in range(0, len(paths), chunk_files):
-                nxt = pool.map_async(load, paths[i : i + chunk_files])
+                # The chunk's wait span is made when its files are handed to
+                # the pool, so that their decode spans, in the pool's
+                # threads, name it as their parent; it starts when the
+                # consumer waits for the chunk (never across a yield).
+                wait = profiling.span("decode.wait")
+                chunk = paths[i : i + chunk_files]
+                nxt = (wait, pool.map_async(functools.partial(load, wait), chunk))
                 if pending is not None:
-                    yield pending.get()
+                    yield collect(*pending)
                 pending = nxt
             if pending is not None:
-                yield pending.get()
+                yield collect(*pending)
         finally:
             pool.close()
             pool.join()
@@ -392,9 +407,10 @@ class FrechetAudioDistance:
             return -1
 
         def epilogue():
-            mu1, sigma1 = stats_ops.finalize_stats_np(st_bg)
-            mu2, sigma2 = stats_ops.finalize_stats_np(st_ev)
-            return self.calculate_frechet_distance(mu1, sigma1, mu2, sigma2)
+            with profiling.span("epilogue"):
+                mu1, sigma1 = stats_ops.finalize_stats_np(st_bg)
+                mu2, sigma2 = stats_ops.finalize_stats_np(st_ev)
+                return self.calculate_frechet_distance(mu1, sigma1, mu2, sigma2)
 
         return self._agreed(epilogue)
 

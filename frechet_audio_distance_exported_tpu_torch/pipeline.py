@@ -44,6 +44,7 @@ from .ops import frontends as fe
 from .ops import stats as stats_ops
 from .ops.resample import resample
 from .parallel.embed import merge_stats
+from .utils import profiling
 from .utils.profiling import StageTimer
 
 # What keeps float32 in a reduced-precision model, by family: Encodec's LSTM
@@ -140,13 +141,14 @@ def _pack_wave(rows, b: int, length: int, full_scale: float = 32768.0) -> np.nda
     """Zero-padded batch buffer [b, *row_dims, length] (JAX pipeline.py:53-65);
     rows are padded along their last axis. int16 iff every row is int16
     (mixed chunks are dequantised on the host into a float32 buffer)."""
-    all_i16 = all(r.dtype == np.int16 for r in rows)
-    wave = np.zeros((b,) + rows[0].shape[:-1] + (length,), np.int16 if all_i16 else np.float32)
-    for row, r in enumerate(rows):
-        if r.dtype == np.int16 and not all_i16:
-            r = r.astype(np.float32) / full_scale
-        wave[row, ..., : r.shape[-1]] = r
-    return wave
+    with profiling.span("pack"):
+        all_i16 = all(r.dtype == np.int16 for r in rows)
+        wave = np.zeros((b,) + rows[0].shape[:-1] + (length,), np.int16 if all_i16 else np.float32)
+        for row, r in enumerate(rows):
+            if r.dtype == np.int16 and not all_i16:
+                r = r.astype(np.float32) / full_scale
+            wave[row, ..., : r.shape[-1]] = r
+        return wave
 
 
 def bucket_len(n: int, minimum: int = 2048) -> int:
@@ -184,9 +186,10 @@ def _fold_stats(state, emb: torch.Tensor, mask: torch.Tensor) -> stats_ops.Strea
 
 def _fused_vggish_stats_step(model, wave, p_counts: torch.Tensor, state, num_patches: int):
     """[B, S] waveform + per-file patch counts -> updated StreamingStats."""
-    emb = _vggish_core(model, wave, num_patches)  # [B, P, d]
-    mask = torch.arange(emb.shape[1], device=emb.device)[None, :] < p_counts[:, None]
-    return _fold_stats(state, emb, mask)
+    with profiling.span("step"):
+        emb = _vggish_core(model, wave, num_patches)  # [B, P, d]
+        mask = torch.arange(emb.shape[1], device=emb.device)[None, :] < p_counts[:, None]
+        return _fold_stats(state, emb, mask)
 
 
 def _mel_cnn_core(
@@ -208,17 +211,19 @@ def _fused_mel_cnn_stats_step(
 ):
     """Mel-CNN chunk + stats update; rows >= n_live are batch padding
     (JAX pipeline.py:270)."""
-    emb = _mel_cnn_core(model, wave, n_valid, target_sr, num_frames, i16_full_scale)
-    mask = torch.arange(emb.shape[0], device=emb.device) < n_live
-    return _fold_stats(state, emb, mask)
+    with profiling.span("step"):
+        emb = _mel_cnn_core(model, wave, n_valid, target_sr, num_frames, i16_full_scale)
+        mask = torch.arange(emb.shape[0], device=emb.device) < n_live
+        return _fold_stats(state, emb, mask)
 
 
 def _fused_encodec_stats_step(model, wave, frames: torch.Tensor, state):
     """Encodec chunk + stats update; per-file valid frame counts mask the
     padded tail (JAX pipeline.py:277-283)."""
-    emb = model(wave)  # [B, T, d]
-    mask = torch.arange(emb.shape[1], device=emb.device)[None, :] < frames[:, None]
-    return _fold_stats(state, emb, mask)
+    with profiling.span("step"):
+        emb = model(wave)  # [B, T, d]
+        mask = torch.arange(emb.shape[1], device=emb.device)[None, :] < frames[:, None]
+        return _fold_stats(state, emb, mask)
 
 
 class StatsSink:
@@ -292,7 +297,9 @@ class EmbeddingPipeline:
         self.mesh = mesh
 
     def _to_device(self, arr: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(arr).to(self.device)
+        """Every host-to-device copy of the chunk steps."""
+        with profiling.span("h2d", bytes=arr.nbytes):
+            return torch.from_numpy(arr).to(self.device)
 
     def embed_files(
         self, audio_list: List[np.ndarray], sr: int, strict: bool = False, sink=None
@@ -332,7 +339,7 @@ class EmbeddingPipeline:
         reported under verbose (JAX pipeline.py:526, 541)."""
         family = self.cfg.family
         try:
-            with self.timer.stage(f"embed_files[{family}]"), torch.inference_mode():
+            with self.timer.stage(f"embed_files[{family}]", "embed"), torch.inference_mode():
                 if family == "vggish":
                     return self._embed_vggish(audio_list, sr, strict, sink)
                 if family == "clap":
@@ -363,21 +370,22 @@ class EmbeddingPipeline:
 
     def _embed_vggish(self, audio_list, sr, strict, sink=None):
         prepped: List[Optional[np.ndarray]] = []
-        for audio in audio_list:
-            try:
-                data = np.asarray(audio)
-                if data.ndim > 1:
-                    data = np.mean(data, axis=1)
-                if sr != fe.VGGISH_SAMPLE_RATE:
-                    data = resample(data, sr, fe.VGGISH_SAMPLE_RATE)
-                data = data.astype(np.float32)
-                q = as_int16_exact(data)
-                prepped.append(data if q is None else q)
-            except Exception as e:
-                if strict:
-                    raise
-                self._log_skip(e)
-                prepped.append(None)
+        with profiling.span("prep", files=len(audio_list)):
+            for audio in audio_list:
+                try:
+                    data = np.asarray(audio)
+                    if data.ndim > 1:
+                        data = np.mean(data, axis=1)
+                    if sr != fe.VGGISH_SAMPLE_RATE:
+                        data = resample(data, sr, fe.VGGISH_SAMPLE_RATE)
+                    data = data.astype(np.float32)
+                    q = as_int16_exact(data)
+                    prepped.append(data if q is None else q)
+                except Exception as e:
+                    if strict:
+                        raise
+                    self._log_skip(e)
+                    prepped.append(None)
 
         per_file: List[Optional[np.ndarray]] = [None] * len(audio_list)
         # Long files are split at patch boundaries so no device program sees
@@ -427,10 +435,10 @@ class EmbeddingPipeline:
                 wave = self._to_device(_pack_wave([seg for _, _, seg in chunk], b, s_bucket))
                 p_counts = [fe.vggish_num_patches(len(seg)) for _, _, seg in chunk]
                 if isinstance(sink, StatsSink):
-                    p_arr = torch.zeros((b,), dtype=torch.int64)
-                    p_arr[: len(p_counts)] = torch.tensor(p_counts)
+                    p_arr = np.zeros((b,), np.int64)  # padding rows: no patch
+                    p_arr[: len(p_counts)] = p_counts
                     sink.state = _fused_vggish_stats_step(
-                        self.forward, wave, p_arr.to(self.device), sink.state, p_max
+                        self.forward, wave, self._to_device(p_arr), sink.state, p_max
                     )
                     for (i, _, _), count in zip(chunk, p_counts):
                         counts[i] = counts.get(i, 0) + count
@@ -464,14 +472,15 @@ class EmbeddingPipeline:
         plan_fn(key) -> (buffer_len, target_sample_rate, num_frames)
         """
         prepped: List[Optional[Tuple[np.ndarray, int]]] = []
-        for audio in audio_list:
-            try:
-                prepped.append(prep_fn(np.asarray(audio)))
-            except Exception as e:
-                if strict:
-                    raise
-                self._log_skip(e)
-                prepped.append(None)
+        with profiling.span("prep", files=len(audio_list)):
+            for audio in audio_list:
+                try:
+                    prepped.append(prep_fn(np.asarray(audio)))
+                except Exception as e:
+                    if strict:
+                        raise
+                    self._log_skip(e)
+                    prepped.append(None)
 
         groups: Dict[int, List[int]] = {}
         for i, item in enumerate(prepped):
@@ -628,14 +637,15 @@ class EmbeddingPipeline:
         file's count masked (device stats) or trimmed (host)."""
         max_samples = fe.ENCODEC_CONFIGS[self.cfg.sample_rate]["max_samples"]
         prepped: List[Optional[Tuple[np.ndarray, int]]] = []
-        for audio in audio_list:
-            try:
-                prepped.append(self._encodec_prep(audio, sr))
-            except Exception as e:
-                if strict:
-                    raise
-                self._log_skip(e)
-                prepped.append(None)
+        with profiling.span("prep", files=len(audio_list)):
+            for audio in audio_list:
+                try:
+                    prepped.append(self._encodec_prep(audio, sr))
+                except Exception as e:
+                    if strict:
+                        raise
+                    self._log_skip(e)
+                    prepped.append(None)
 
         idxs = [i for i, p in enumerate(prepped) if p is not None]
         per_file: List[Optional[np.ndarray]] = [None] * len(audio_list)
