@@ -339,14 +339,16 @@ class FrechetAudioDistance:
     def _stream_audio_chunks(self, paths: List[str], dtype: str, chunk_files: int):
         """Decode files in chunks, one chunk ahead of the consumer, so
         decoding overlaps device work and host memory holds about two
-        chunks of waveforms."""
+        chunks of waveforms. A mono 16-bit PCM WAV at the model's rate comes
+        as its int16 samples (audio_io.load_audio_wire), every other file as
+        load_audio returns it."""
         from multiprocessing.dummy import Pool as ThreadPool
 
         pool = ThreadPool(self.audio_load_worker)
 
         def load(wait, p):
             with profiling.span("decode", parent=wait):
-                return audio_io.load_audio(p, self.sample_rate, self.channels, dtype)
+                return audio_io.load_audio_wire(p, self.sample_rate, self.channels, dtype)
 
         def collect(wait, result):
             with wait:

@@ -14,13 +14,20 @@ on the device. Planning rules, each part of the reference numerics:
   never share a program: the grid length feeds global pooling and shows in
   the embedding. One row per file.
 - CLAP: every file is truncated or zero-padded towards 10 s at 48 kHz and
-  quantized to the k/32767 grid on the host; files group by buffer length
-  and each runs 1001 log-mel frames. One row per file.
+  quantized on the host to int16 m = trunc(x * 32767) in float32, the round
+  trip CLAP was trained with, which the device reads as m/32767; without a
+  resample m is reflect-padded and shipped as it is (a PCM16 sample k gives
+  m = k - sign(k)). Files group by buffer length and each runs 1001
+  log-mel frames. One row per file.
 - Encodec: each file becomes [C, S] at the model's rate (C = 1 at 24 kHz, 2
   at 48 kHz) and is zero-padded to 10 s; files over 10 s are refused. The
   file keeps original_samples // 320 frames, where original_samples is its
   length at the model's rate taken before the resample (JAX
   pipeline.py:885-890). One row per kept frame.
+The wire is int16 wherever the samples are: audio_io.Pcm16 items (score()'s
+streamed path: mono 16-bit PCM files at the model's rate) ship their decoded
+k as they are, CLAP's m too; other float input that is exactly on the grid
+is found by as_int16_exact. Everything else ships float32.
 Row order of the concatenated embedding matrix is files in input order,
 patches in time order within a file. Under a mesh (set_mesh) each rank
 embeds its own block of the files and the results are gathered in that
@@ -45,6 +52,7 @@ from .ops import stats as stats_ops
 from .ops.resample import resample
 from .parallel.embed import merge_stats
 from .utils import profiling
+from .utils.audio_io import Pcm16
 from .utils.profiling import StageTimer
 
 # What keeps float32 in a reduced-precision model, by family: Encodec's LSTM
@@ -127,14 +135,40 @@ def pann_frame_cap(device: torch.device) -> int:
 
 
 def as_int16_exact(x: np.ndarray, full_scale: float = 32768.0) -> Optional[np.ndarray]:
-    """int16 view of float audio that is exactly on the k/full_scale grid
-    (decoded PCM16 that was never resampled or mixed), else None. Shipping
-    int16 halves the host-to-device bytes; the frontend dequantises on the
-    device losslessly (ops.frontends.dequant_i16)."""
+    """int16 view of float audio that is exactly on the k/full_scale grid,
+    else None: float arrays that hold PCM16 never resampled or mixed (what
+    get_embeddings is handed, a PCM16 file that was mono-mixed to the same
+    samples), a resampled CLAP file that lands on the grid. Shipping int16
+    halves the host-to-device bytes; the frontend dequantises on the device
+    losslessly (ops.frontends.dequant_i16). audio_io.Pcm16 items and CLAP's
+    own int16 round trip never come here: their int16 is known."""
     q = np.round(x * full_scale)
     if q.size and -32768.0 <= q.min() and q.max() <= 32767.0 and np.array_equal(q / full_scale, x):
         return q.astype(np.int16)
     return None
+
+
+def _clap_int16_wave(data: np.ndarray, pcm16: bool, length: int, half: int) -> np.ndarray:
+    """CLAP's int16 round trip of a 48 kHz clip, zero-padded to ``length``
+    and reflect-padded by ``half`` on each side (fe.reflect_pad_host's
+    layout for a clip longer than ``half``), written once into the buffer
+    that ships. The round trip CLAP was trained with is numpy's cast of the
+    float32 x * 32767, which truncates toward zero: m. The device reads
+    m/32767, so m itself is the wire. For a PCM16 sample k (``pcm16``:
+    ``data`` holds k, standing for k/32768) m is k - sign(k), for every
+    int16 k."""
+    n = max(len(data), length)
+    out = np.empty(n + 2 * half, np.int16)
+    m = out[half : half + len(data)]
+    if pcm16:
+        np.sign(data, out=m)
+        np.subtract(data, m, out=m)
+    else:
+        m[:] = (data.astype(np.float32) * 32767.0).astype(np.int16)
+    out[half + len(data) : half + n] = 0
+    out[:half] = out[2 * half : half : -1]
+    out[half + n :] = out[half + n - 2 : n - 2 : -1]
+    return out
 
 
 def _pack_wave(rows, b: int, length: int, full_scale: float = 32768.0) -> np.ndarray:
@@ -336,7 +370,9 @@ class EmbeddingPipeline:
         """embed_files over this process's list alone, with no collective
         whatever the mesh: the sharded score path (fad.py) calls it on this
         rank's block of a directory. Timed as the embed_files[family] stage,
-        reported under verbose (JAX pipeline.py:526, 541)."""
+        reported under verbose (JAX pipeline.py:526, 541). The streamed
+        score path hands it audio_io.Pcm16 items beside arrays; the ``prep``
+        span counts those that shipped their int16 as it is (``pcm16``)."""
         family = self.cfg.family
         try:
             with self.timer.stage(f"embed_files[{family}]", "embed"), torch.inference_mode():
@@ -370,8 +406,14 @@ class EmbeddingPipeline:
 
     def _embed_vggish(self, audio_list, sr, strict, sink=None):
         prepped: List[Optional[np.ndarray]] = []
-        with profiling.span("prep", files=len(audio_list)):
+        wire = sr == fe.VGGISH_SAMPLE_RATE
+        n_pcm16 = 0
+        with profiling.span("prep", files=len(audio_list)) as prep:
             for audio in audio_list:
+                if wire and isinstance(audio, Pcm16):
+                    prepped.append(audio.samples)
+                    n_pcm16 += 1
+                    continue
                 try:
                     data = np.asarray(audio)
                     if data.ndim > 1:
@@ -386,6 +428,8 @@ class EmbeddingPipeline:
                         raise
                     self._log_skip(e)
                     prepped.append(None)
+            if prep is not None:
+                prep.counts["pcm16"] = n_pcm16
 
         per_file: List[Optional[np.ndarray]] = [None] * len(audio_list)
         # Long files are split at patch boundaries so no device program sees
@@ -460,27 +504,35 @@ class EmbeddingPipeline:
         return per_file
 
     def _embed_mel_cnn(
-        self, audio_list, strict, sink, prep_fn, group_key_fn, plan_fn,
+        self, audio_list, sr, strict, sink, prep_fn, group_key_fn, plan_fn,
         i16_full_scale: float = 32768.0,
     ):
         """Shared scaffold of the mel-frontend CNN families (JAX
         pipeline.py:694-767).
 
-        prep_fn(audio) -> (reflect_padded_wave, n_valid_frames); the wave may
-            be int16 on the k/i16_full_scale grid (PCM16-exact fast path)
+        prep_fn(data, pcm16) -> (reflect_padded_wave, n_valid_frames); data
+            is a Pcm16 item's int16 samples where pcm16 (mono, at the
+            model's rate, standing for k/32768), else the item as an array;
+            the wave may be int16 on the k/i16_full_scale grid
         group_key_fn(item) -> static-shape group key
         plan_fn(key) -> (buffer_len, target_sample_rate, num_frames)
         """
         prepped: List[Optional[Tuple[np.ndarray, int]]] = []
-        with profiling.span("prep", files=len(audio_list)):
+        wire = sr == self.cfg.sample_rate
+        n_pcm16 = 0
+        with profiling.span("prep", files=len(audio_list)) as prep:
             for audio in audio_list:
+                pcm16 = wire and isinstance(audio, Pcm16)
                 try:
-                    prepped.append(prep_fn(np.asarray(audio)))
+                    prepped.append(prep_fn(audio.samples if pcm16 else np.asarray(audio), pcm16))
+                    n_pcm16 += pcm16
                 except Exception as e:
                     if strict:
                         raise
                     self._log_skip(e)
                     prepped.append(None)
+            if prep is not None:
+                prep.counts["pcm16"] = n_pcm16
 
         groups: Dict[int, List[int]] = {}
         for i, item in enumerate(prepped):
@@ -535,12 +587,13 @@ class EmbeddingPipeline:
         n_fft, hop = cfg["window_size"], cfg["hop_size"]
         frame_cap = pann_frame_cap(self.device)
 
-        def prep(data):
-            if data.ndim > 1:
-                data = np.mean(data, axis=1)
-            if sr != target_sr:
-                data = resample(data, sr, target_sr)
-            data = data.astype(np.float32)
+        def prep(data, pcm16):
+            if not pcm16:
+                if data.ndim > 1:
+                    data = np.mean(data, axis=1)
+                if sr != target_sr:
+                    data = resample(data, sr, target_sr)
+                data = data.astype(np.float32)
             t_i = fe.pann_num_frames(len(data), hop)
             if fe.pann_valid_time(t_i) < 40:
                 # The CNN needs time/32 >= 1 after five floor-halving pools;
@@ -558,21 +611,25 @@ class EmbeddingPipeline:
             # Pad first, then check the int16 grid: the wire carries the
             # padded wave (reflection keeps PCM16 samples on the grid).
             padded = fe.reflect_pad_host(data, n_fft)
+            if pcm16:
+                return padded, t_i
             q = as_int16_exact(padded)
             return (padded if q is None else q), t_i
 
         return self._embed_mel_cnn(
-            audio_list, strict, sink,
+            audio_list, sr, strict, sink,
             prep_fn=prep,
             # The 32k-24 grid shows in the embedding: never mix grids.
             group_key_fn=lambda item: fe.pann_valid_time(item[1]),
             plan_fn=lambda t_grid: (t_grid * hop + n_fft, target_sr, t_grid),
         )
 
-    def _clap_prep(self, data: np.ndarray, sr: int):
+    def _clap_prep(self, data: np.ndarray, sr: int, pcm16: bool = False):
         """One file's host steps (JAX pipeline.py:815-862), in the JAX
-        package's order; each one shows in the embedding. Returns the
-        reflect-padded wave (int16 on the k/32767 grid where it is exact)
+        package's order; each one shows in the embedding. ``data`` is float
+        audio, or with ``pcm16`` a Pcm16 item's int16 samples k (mono, at
+        48 kHz, standing for k/32768). Returns the reflect-padded wave
+        (int16 on the k/32767 grid, unless a resample took it off the grid)
         and its frame count."""
         n_fft = fe.PANN_CONFIGS[fe.CLAP_SAMPLE_RATE]["window_size"]
         hop = fe.PANN_CONFIGS[fe.CLAP_SAMPLE_RATE]["hop_size"]
@@ -590,14 +647,16 @@ class EmbeddingPipeline:
         # The waveform is zero-padded to 10 s before the mel, capped at the
         # read window.
         pad_target = min(fe.CLAP_MAX_SAMPLES, need)
+        if sr == fe.CLAP_SAMPLE_RATE:
+            wave = _clap_int16_wave(data, pcm16, pad_target, n_fft // 2)
+            n_valid = min(fe.CLAP_TIME_FRAMES, fe.pann_num_frames(len(wave) - n_fft, hop))
+            return wave, n_valid
         if len(data) < pad_target:
             data = np.pad(data, (0, pad_target - len(data)))
+        # The int16 round trip, then the resample, which leaves the grid.
+        m = (data.astype(np.float32) * 32767.0).astype(np.int16)
+        data = resample(m.astype(np.float32) / 32767.0, sr, fe.CLAP_SAMPLE_RATE)
         data = data.astype(np.float32)
-        # The int16 round trip CLAP was trained with: numpy's cast, which
-        # truncates toward zero; then the resample.
-        data = (data * 32767.0).astype(np.int16).astype(np.float32) / 32767.0
-        if sr != fe.CLAP_SAMPLE_RATE:
-            data = resample(data, sr, fe.CLAP_SAMPLE_RATE).astype(np.float32)
         n_valid = min(fe.CLAP_TIME_FRAMES, fe.pann_num_frames(len(data), hop))
         padded = fe.reflect_pad_host(data, n_fft)
         q = as_int16_exact(padded, 32767.0)
@@ -606,8 +665,8 @@ class EmbeddingPipeline:
     def _embed_clap(self, audio_list, sr, strict, sink=None):
         """JAX pipeline.py:812-870: one row per file, grouped by buffer length."""
         return self._embed_mel_cnn(
-            audio_list, strict, sink,
-            prep_fn=lambda data: self._clap_prep(data, sr),
+            audio_list, sr, strict, sink,
+            prep_fn=lambda data, pcm16: self._clap_prep(data, sr, pcm16),
             group_key_fn=lambda item: bucket_len(len(item[0])),
             plan_fn=lambda s_bucket: (s_bucket, fe.CLAP_SAMPLE_RATE, fe.CLAP_TIME_FRAMES),
             i16_full_scale=32767.0,
@@ -637,7 +696,8 @@ class EmbeddingPipeline:
         file's count masked (device stats) or trimmed (host)."""
         max_samples = fe.ENCODEC_CONFIGS[self.cfg.sample_rate]["max_samples"]
         prepped: List[Optional[Tuple[np.ndarray, int]]] = []
-        with profiling.span("prep", files=len(audio_list)):
+        # A Pcm16 item reaches Encodec as its float32 waveform (np.asarray).
+        with profiling.span("prep", files=len(audio_list), pcm16=0):
             for audio in audio_list:
                 try:
                     prepped.append(self._encodec_prep(audio, sr))

@@ -7,7 +7,10 @@ conversion, `pcm16_payload` with its byte order, `sf_read`'s dispatch by
 magic bytes (WAV, RF64/BW64, Wave64, FLAC, FLAC after an ID3v2 tag, AIFF/
 AIFC, AU, CAF, Ogg Vorbis/Opus/FLAC, MP3 by its frame sync), the optional
 soundfile preference and `set_native_decoder`. The directory loaders are
-the port's own (no tqdm). Observable semantics are the reference's:
+the port's own (no tqdm), and so is `load_audio_wire`, the loader of
+score()'s streamed path, which hands a mono 16-bit PCM WAV at the model's
+rate out as its int16 samples (`Pcm16`). Observable semantics are the
+reference's:
 
 - ``dtype='float32'`` returns float32 in [-1, 1] (PCM full-scale normalised,
   the libsndfile convention).
@@ -23,7 +26,7 @@ from __future__ import annotations
 import os
 import struct
 from multiprocessing.dummy import Pool as ThreadPool
-from typing import Callable, List, Optional, Tuple
+from typing import Callable, List, Optional, Tuple, Union
 
 import numpy as np
 
@@ -60,7 +63,13 @@ def read_wav(path: str, dtype: str = "float32") -> Tuple[np.ndarray, int]:
     """
     with open(path, "rb") as f:
         raw = f.read()
+    samples, sample_rate = _wav_samples(raw, path)
+    return _convert_dtype(samples, dtype), sample_rate
 
+
+def _wav_samples(raw: bytes, path: str) -> Tuple[np.ndarray, int]:
+    """A RIFF/WAVE file's bytes -> (its samples as _decode_samples gives
+    them, [frames] or [frames, channels]; its sample rate)."""
     if len(raw) < 12 or raw[0:4] != b"RIFF" or raw[8:12] != b"WAVE":
         raise ValueError(f"Not a RIFF/WAVE file: {path}")
 
@@ -68,10 +77,11 @@ def read_wav(path: str, dtype: str = "float32") -> Tuple[np.ndarray, int]:
     data_bytes = None
     pos = 12
     n = len(raw)
+    view = memoryview(raw)  # chunk bodies without a copy: the samples view the file's bytes
     while pos + 8 <= n:
         chunk_id = raw[pos : pos + 4]
         (chunk_size,) = struct.unpack_from("<I", raw, pos + 4)
-        body = raw[pos + 8 : pos + 8 + chunk_size]
+        body = view[pos + 8 : pos + 8 + chunk_size]
         if chunk_id == b"fmt ":
             fmt = _parse_fmt(body)
         elif chunk_id == b"data":
@@ -88,7 +98,7 @@ def read_wav(path: str, dtype: str = "float32") -> Tuple[np.ndarray, int]:
         frames = samples.shape[0] // channels
         samples = samples[: frames * channels].reshape(frames, channels)
 
-    return _convert_dtype(samples, dtype), sample_rate
+    return samples, sample_rate
 
 
 def _parse_fmt(body: bytes):
@@ -310,7 +320,13 @@ def load_audio(fname: str, sample_rate: int, channels: int, dtype: str = "float3
     resample to ``sample_rate``.
     """
     wav_data, sr = sf_read(fname, dtype=dtype)
+    return _preprocess(wav_data, sr, sample_rate, channels, dtype)
 
+
+def _preprocess(
+    wav_data: np.ndarray, sr: int, sample_rate: int, channels: int, dtype: str
+) -> np.ndarray:
+    """load_audio's steps after the decode."""
     # Normalize integer audio to [-1.0, +1.0] (reference: fad.py:147-151; note
     # for the default float32 path this is a no-op, preserved for parity).
     if dtype == "int16":
@@ -327,6 +343,55 @@ def load_audio(fname: str, sample_rate: int, channels: int, dtype: str = "float3
         wav_data = resample(wav_data, sr, sample_rate)
 
     return wav_data
+
+
+class Pcm16:
+    """A mono file's 16-bit PCM samples k (int16), which stand for the
+    waveform k / 32768 at the sample rate the file was loaded for.
+
+    load_audio_wire hands these out so that the pipeline can ship the
+    decoder's own int16 samples and never has to find them again in a float
+    array; a bare int16 array means raw integers, not this. ``np.asarray``
+    gives the float32 waveform, which is what load_audio returns for the
+    file (the same values in float64 for the other dtypes)."""
+
+    __slots__ = ("samples",)
+
+    def __init__(self, samples: np.ndarray):
+        self.samples = samples
+
+    def __len__(self) -> int:
+        return len(self.samples)
+
+    def __array__(self, dtype=None, copy=None) -> np.ndarray:
+        wave = self.samples.astype(np.float32) / 32768.0
+        return wave if dtype is None else wave.astype(dtype, copy=False)
+
+
+# The dtypes load_audio accepts; for 16-bit PCM each gives exactly k / 32768.
+_WIRE_DTYPES = ("float32", "float64", "int16", "int32")
+
+
+def load_audio_wire(
+    fname: str, sample_rate: int, channels: int, dtype: str = "float32"
+) -> Union[np.ndarray, Pcm16]:
+    """load_audio for the pipeline alone: a Pcm16 where the port's own WAV
+    codec reads the file as mono 16-bit integer PCM already at
+    ``sample_rate`` (no mono mix, no resample: load_audio would return
+    exactly k / 32768), else what load_audio returns. A WAV file is read
+    once either way."""
+    own_codec = _sf is None and (_NATIVE_DECODER is None or dtype not in ("float32", "float64"))
+    if not own_codec or dtype not in _WIRE_DTYPES:
+        return load_audio(fname, sample_rate, channels, dtype)
+    with open(fname, "rb") as f:
+        if f.read(4) != b"RIFF":
+            return load_audio(fname, sample_rate, channels, dtype)
+        f.seek(0)
+        raw = f.read()
+    samples, sr = _wav_samples(raw, fname)
+    if samples.dtype == np.int16 and samples.ndim == 1 and channels >= 1 and sr == sample_rate:
+        return Pcm16(samples)
+    return _preprocess(_convert_dtype(samples, dtype), sr, sample_rate, channels, dtype)
 
 
 def list_audio_files(directory: str) -> List[str]:

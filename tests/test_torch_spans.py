@@ -151,7 +151,9 @@ def test_counts_are_the_files_and_the_bytes(fad, dirs, monkeypatch):
     # Each packed wave, and VGGish's int64 patch count a row of it.
     expect = sum(w.nbytes + 8 * w.shape[0] for w in packed)
     assert sum(s.counts["bytes"] for s in spans if s.name == "h2d") == expect
-    assert all(set(s.counts) == {"files"} for s in spans if s.name == "prep")
+    # Every file is a PCM16 WAV at the model's rate: each took the wire.
+    assert all(set(s.counts) == {"files", "pcm16"} for s in spans if s.name == "prep")
+    assert all(s.counts["pcm16"] == s.counts["files"] for s in spans if s.name == "prep")
     assert all(not s.counts for s in spans if s.name not in ("prep", "h2d"))
 
 
