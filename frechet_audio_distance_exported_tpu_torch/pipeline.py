@@ -27,7 +27,9 @@ on the device. Planning rules, each part of the reference numerics:
 The wire is int16 wherever the samples are: audio_io.Pcm16 items (score()'s
 streamed path: mono 16-bit PCM files at the model's rate) ship their decoded
 k as they are, CLAP's m too; other float input that is exactly on the grid
-is found by as_int16_exact. Everything else ships float32.
+is found by as_int16_exact. Everything else ships float32. At 48 kHz an
+Encodec chunk whose files are all mono Pcm16 ships [b, 1, S] and the device
+repeats the channel; any other 48 kHz chunk ships [b, 2, S].
 Row order of the concatenated embedding matrix is files in input order,
 patches in time order within a file. Under a mesh (set_mesh) each rank
 embeds its own block of the files and the results are gathered in that
@@ -251,10 +253,11 @@ def _fused_mel_cnn_stats_step(
         return _fold_stats(state, emb, mask)
 
 
-def _fused_encodec_stats_step(model, wave, frames: torch.Tensor, state):
+def _fused_encodec_stats_step(model, wave, frames: torch.Tensor, state, n_frames: int = 0):
     """Encodec chunk + stats update; per-file valid frame counts mask the
-    padded tail (JAX pipeline.py:277-283)."""
-    with profiling.span("step"):
+    padded tail (JAX pipeline.py:277-283). The ``step`` span counts
+    ``n_frames``, the frames folded in."""
+    with profiling.span("step", frames=n_frames):
         emb = model(wave)  # [B, T, d]
         mask = torch.arange(emb.shape[1], device=emb.device)[None, :] < frames[:, None]
         return _fold_stats(state, emb, mask)
@@ -672,60 +675,91 @@ class EmbeddingPipeline:
             i16_full_scale=32767.0,
         )
 
-    def _encodec_prep(self, audio: np.ndarray, sr: int):
+    def _encodec_prep(self, audio: np.ndarray, sr: int, pcm16: bool = False):
         """One file's host steps (JAX pipeline.py:882-899): [C, S] at the
-        model's rate (int16 where it is exact) and its valid frame count."""
+        model's rate (int16 where it is exact) and its valid frame count.
+        With ``pcm16``, ``audio`` is a Pcm16 item's int16 samples k (mono, at
+        the model's rate), returned as they are, [1, S]: a 48 kHz chunk
+        duplicates the channel where it packs them (_embed_encodec)."""
         target_sr = self.cfg.sample_rate
         config = fe.ENCODEC_CONFIGS[target_sr]
-        audio = np.asarray(audio)
-        # The length at the model's rate, taken before the resample.
-        original_samples = int(len(audio) * target_sr / sr) if sr != target_sr else len(audio)
-        pre = fe.preprocess_for_encodec(
-            audio, sr, target_sample_rate=target_sr,
-            target_channels=config["channels"], return_tensor=False,
-        )  # [C, S]
+        if pcm16:
+            pre = audio[None, :]
+            original_samples = len(audio)
+        else:
+            audio = np.asarray(audio)
+            # The length at the model's rate, taken before the resample.
+            original_samples = int(len(audio) * target_sr / sr) if sr != target_sr else len(audio)
+            pre = fe.preprocess_for_encodec(
+                audio, sr, target_sample_rate=target_sr,
+                target_channels=config["channels"], return_tensor=False,
+            )  # [C, S]
         if pre.shape[-1] > config["max_samples"]:
             raise ValueError(
                 f"Audio too long: {pre.shape[-1]} samples > {config['max_samples']} max samples"
             )
-        q = as_int16_exact(pre)
-        return (pre if q is None else q), original_samples // config["hop_length"]
+        if not pcm16:
+            q = as_int16_exact(pre)
+            pre = pre if q is None else q
+        return pre, original_samples // config["hop_length"]
 
     def _embed_encodec(self, audio_list, sr, strict, sink=None):
         """JAX pipeline.py:876-933: every chunk padded to 10 s, frames past a
-        file's count masked (device stats) or trimmed (host)."""
-        max_samples = fe.ENCODEC_CONFIGS[self.cfg.sample_rate]["max_samples"]
+        file's count masked (device stats) or trimmed (host). A chunk of
+        mono int16 rows alone ships [b, 1, S] and the device makes the
+        model's channels; in any other chunk a mono row is duplicated on the
+        host. The ``prep`` span counts the Pcm16 items (``pcm16``) and the
+        files whose second channel the device makes (``dup``)."""
+        config = fe.ENCODEC_CONFIGS[self.cfg.sample_rate]
+        channels, max_samples = config["channels"], config["max_samples"]
         prepped: List[Optional[Tuple[np.ndarray, int]]] = []
-        # A Pcm16 item reaches Encodec as its float32 waveform (np.asarray).
-        with profiling.span("prep", files=len(audio_list), pcm16=0):
+        wire = sr == self.cfg.sample_rate
+        n_pcm16 = 0
+        with profiling.span("prep", files=len(audio_list)) as prep:
             for audio in audio_list:
+                pcm16 = wire and isinstance(audio, Pcm16)
                 try:
-                    prepped.append(self._encodec_prep(audio, sr))
+                    prepped.append(self._encodec_prep(audio.samples if pcm16 else audio, sr, pcm16))
+                    n_pcm16 += pcm16
                 except Exception as e:
                     if strict:
                         raise
                     self._log_skip(e)
                     prepped.append(None)
+            idxs = [i for i, p in enumerate(prepped) if p is not None]
+            chunks = [idxs[c0 : c0 + self.file_batch] for c0 in range(0, len(idxs), self.file_batch)]
+            # Chunks whose every row is a Pcm16 item's [1, S]: the device
+            # repeats the channel.
+            mono = [channels > 1 and all(prepped[i][0].shape[0] == 1 for i in chunk)
+                    for chunk in chunks]
+            if prep is not None:
+                prep.counts["pcm16"] = n_pcm16
+                prep.counts["dup"] = sum(len(c) for c, m in zip(chunks, mono) if m)
 
-        idxs = [i for i, p in enumerate(prepped) if p is not None]
         per_file: List[Optional[np.ndarray]] = [None] * len(audio_list)
         pending = []
-        for c0 in range(0, len(idxs), self.file_batch):
-            chunk_idx = idxs[c0 : c0 + self.file_batch]
+        done = 0
+        for chunk_idx, dup in zip(chunks, mono):
             b = bucket_batch(len(chunk_idx), self.file_batch)
-            wave = self._to_device(_pack_wave([prepped[i][0] for i in chunk_idx], b, max_samples))
+            rows = [prepped[i][0] for i in chunk_idx]
+            if not dup:
+                rows = [np.broadcast_to(r, (channels, r.shape[-1])) for r in rows]
+            wave = self._to_device(_pack_wave(rows, b, max_samples))
+            if dup:  # preprocess_for_encodec's duplicate of a mono file, made on the device
+                wave = wave.expand(-1, channels, -1).contiguous()
             frames = np.zeros((b,), np.int64)  # padding rows: all masked
             for row, i in enumerate(chunk_idx):
                 frames[row] = prepped[i][1]
                 per_file[i] = prepped[i][1]
             if isinstance(sink, StatsSink):
                 sink.state = _fused_encodec_stats_step(
-                    self.forward, wave, self._to_device(frames), sink.state
+                    self.forward, wave, self._to_device(frames), sink.state, int(frames.sum())
                 )
             else:
                 pending.append((chunk_idx, self.forward(wave)))  # [b, T, 128]
+            done += len(chunk_idx)
             if self.verbose:
-                print(f"[FAD-TORCH] embedded {c0 + len(chunk_idx)}/{len(idxs)} files")
+                print(f"[FAD-TORCH] embedded {done}/{len(idxs)} files")
         # Copy back after all launches, so device work overlaps host packing.
         for chunk_idx, emb_dev in pending:
             emb = emb_dev.cpu().numpy()

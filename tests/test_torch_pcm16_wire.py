@@ -13,7 +13,9 @@ replace (every int16 sample, the cut and the zero pad, float input beyond
 full scale, a resampled clip); the loader against ``load_audio`` and the
 JAX package's loader; whole ``score(device_stats=True)`` calls against the
 same calculator fed ``load_audio``'s float32 arrays, bit for bit in the
-statistics and the FAD, with the ``prep`` spans' ``pcm16`` counts.
+statistics and the FAD, with the ``prep`` spans' ``pcm16`` counts; Encodec's
+wire at both rates, with the files whose second channel the device makes
+(``dup``) and the frames its ``step`` spans fold in.
 """
 
 import struct
@@ -278,19 +280,20 @@ def test_the_reference_loaders_still_return_float_arrays(tmp_path):
 # score() end to end
 # ---------------------------------------------------------------------------
 
-RATES = {"vggish": 16000, "pann-16k": 16000, "clap": 48000, "encodec-24k": 24000}
+RATES = {"vggish": 16000, "pann-16k": 16000, "clap": 48000, "encodec-24k": 24000,
+         "encodec-48k": 48000}
 
 
 @pytest.fixture(scope="module")
 def calculator(tmp_path_factory):
     made = {}
 
-    def get(model):
-        if model not in made:
-            made[model] = FrechetAudioDistance(
-                model_name=model, weights="random", device="cpu",
+    def get(model, channels=1):
+        if (model, channels) not in made:
+            made[model, channels] = FrechetAudioDistance(
+                model_name=model, weights="random", device="cpu", channels=channels,
                 ckpt_dir=str(tmp_path_factory.mktemp("ck")))
-        return made[model]
+        return made[model, channels]
 
     return get
 
@@ -310,10 +313,10 @@ def make_dirs(root, kinds_sr, seconds=(1.5, 2.2)):
     return dirs
 
 
-def scored(fad, dirs, dtype, monkeypatch, loader=None):
+def scored(fad, dirs, dtype, monkeypatch, loader=None, counts=("files", "pcm16"), spans_out=None):
     """score(device_stats=True) -> (FAD, each directory's StreamingStats,
-    the prep spans' (files, pcm16) counts); ``loader`` replaces the streamed
-    path's load_audio_wire."""
+    the prep spans' ``counts``); ``loader`` replaces the streamed path's
+    load_audio_wire; every span recorded is appended to ``spans_out``."""
     states = []
     accumulate = fad._accumulate_paths
 
@@ -330,7 +333,9 @@ def scored(fad, dirs, dtype, monkeypatch, loader=None):
             value = fad.score(*dirs, dtype=dtype, device_stats=True)
         finally:
             spans = profiling.stop()
-    preps = [(s.counts["files"], s.counts["pcm16"]) for s in spans if s.name == "prep"]
+    if spans_out is not None:
+        spans_out.extend(spans)
+    preps = [tuple(s.counts[c] for c in counts) for s in spans if s.name == "prep"]
     return value, states, preps
 
 
@@ -390,14 +395,46 @@ def test_score_of_a_mixed_directory_counts_its_pcm16_files(tmp_path, calculator,
         assert preps == [(8, 4), (8, 4)]
 
 
-def test_score_of_encodec_takes_pcm16_files_as_float32(tmp_path, calculator, monkeypatch):
-    fad = calculator("encodec-24k")
-    dirs = make_dirs(tmp_path, [("pcm16", 24000)], seconds=(1.0, 1.5))
-    value, states, preps = scored(fad, dirs, "float32", monkeypatch)
-    want_value, want_states, _ = scored(fad, dirs, "float32", monkeypatch, parent_loader)
+@pytest.mark.parametrize("model", ["encodec-24k", "encodec-48k"])
+def test_score_of_encodec_takes_pcm16_files_as_float32(tmp_path, calculator, monkeypatch, model):
+    """Encodec scores mono PCM16 files on the wire exactly as the float32
+    path does: at 24 kHz as [b, 1, S]; at 48 kHz a chunk of such files alone
+    ships [b, 1, S] and the device repeats the channel (``dup``). The
+    ``step`` spans count the frames folded in: the statistics' row count."""
+    fad = calculator(model)
+    dirs = make_dirs(tmp_path, [("pcm16", RATES[model])], seconds=(1.0, 1.5))
+    counts = ("files", "pcm16", "dup")
+    spans = []
+    value, states, preps = scored(fad, dirs, "float32", monkeypatch, counts=counts,
+                                  spans_out=spans)
+    want_value, want_states, want_preps = scored(fad, dirs, "float32", monkeypatch,
+                                                 float32_loader, counts=counts)
     assert value > 0 and value == want_value
     assert_same_stats(states, want_states)
-    assert preps == [(2, 0), (2, 0)]
+    dup = 2 if model == "encodec-48k" else 0  # 24 kHz is mono: no second channel
+    assert preps == [(2, 2, dup), (2, 2, dup)]
+    assert want_preps == [(2, 0, 0), (2, 0, 0)]
+    frames = [s.counts["frames"] for s in spans if s.name == "step"]
+    assert frames == [int(st.n.item()) for st in states]
+    assert frames == [(RATES[model] + RATES[model] * 3 // 2) // 320] * 2
+
+
+def test_score_of_encodec48k_ships_a_chunk_with_a_stereo_file_as_two_channels(
+        tmp_path, calculator, monkeypatch):
+    """A 48 kHz chunk that holds a stereo file packs [b, 2, S]: its mono
+    PCM16 files take the wire (``pcm16``) but are duplicated on the host, so
+    the device makes no channel (``dup`` 0); the statistics and the FAD
+    stay those of the float32 path."""
+    fad = calculator("encodec-48k", channels=2)
+    dirs = make_dirs(tmp_path, [("pcm16", 48000), ("stereo", 48000)], seconds=(0.5, 0.75))
+    counts = ("files", "pcm16", "dup")
+    value, states, preps = scored(fad, dirs, "float32", monkeypatch, counts=counts)
+    want_value, want_states, want_preps = scored(fad, dirs, "float32", monkeypatch,
+                                                 float32_loader, counts=counts)
+    assert value > 0 and value == want_value
+    assert_same_stats(states, want_states)
+    assert preps == [(4, 2, 0), (4, 2, 0)]
+    assert want_preps == [(4, 0, 0), (4, 0, 0)]
 
 
 @pytest.mark.parametrize("model", ["pann-16k", "clap"])
