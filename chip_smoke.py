@@ -2,11 +2,11 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels (four, and bf16 instances of the two Swin
-kernels) from the sources in this checkout and checks each against its
-plain torch version at its main path's shapes, at the CUDA file_batch of
-64: the two log-mel kernels (each an in-block real
-FFT on csrc/rfft.cuh), swin_block_fused at CLAP stages 1-3 (shifted and
+Builds the port's CUDA kernels (four, bf16 instances of the two Swin
+kernels, and the GroupNorm(1, C) pair in float32 and bf16) from the sources
+in this checkout and checks each against its plain torch version at its
+main path's shapes, at the CUDA file_batch of 64: the two log-mel kernels
+(each an in-block real FFT on csrc/rfft.cuh), swin_block_fused at CLAP stages 1-3 (shifted and
 not) and window_attention_fused at stage 4 (csrc/window_attn.cu: the
 weights split once a call, then 3xTF32 wgmma GEMMs over token tiles, fed
 by TMA, with the LayerNorm applied on load, around the per-window
@@ -18,7 +18,12 @@ kernels are also held to their plain versions at a ragged BW of each
 (odd, shifted, nine masks), their ptxas lines (no spill), the HGMMA
 instructions of the GEMM they launch (none fails the run), and
 torch.matmul's float32 time on the stage-4 GEMM shapes, TF32 off and on,
-is printed as a yardstick. Then it
+is printed as a yardstick. The GroupNorm pair (csrc/group_norm.cu) is held
+to its plain version at the 18 norms of a 48 kHz Encodec forward of 64
+clips, each timed beside the plain version, ATen's nn.GroupNorm (the
+yardstick, library_ms) and its bound (three passes over the tensor's bytes),
+two launches bit for bit, bf16 at the largest and the smallest norm in bf16
+ulps, and its ptxas lines (no spill). Then it
 drives the ported paths through the public API,
 FrechetAudioDistance(weights="random", device="cuda"):
 - VGGish: scores two 16 kHz WAV corpora and checks the results;
@@ -27,10 +32,11 @@ FrechetAudioDistance(weights="random", device="cuda"):
 - CLAP: scores two 48 kHz corpora (with a 12 s clip, truncated, and a
   0.5 s one), then the 16 kHz part (resampled as it is loaded), and holds
   card embeddings against the CPU's on the pipeline's resample path;
-- Encodec, which has no hand kernel (its convolutions, GroupNorm and LSTM
-  are cuDNN's): encodec-24k on 24 kHz mono corpora and encodec-48k on 48
-  kHz stereo ones (8 sines and 8 noise clips of 10 s, a 4 s clip whose
-  padded frames are masked, a 12 s clip that the batch skips), then
+- Encodec (cuDNN's convolutions and LSTM; at 48 kHz the GroupNorm kernel
+  pair after each of the 18 convolutions): encodec-24k on 24 kHz mono
+  corpora and encodec-48k on 48 kHz stereo ones (8 sines and 8 noise
+  clips of 10 s, a 4 s clip whose padded frames are masked, a 12 s clip
+  that the batch skips), then
   encodec-48k with channels=1 on the 16 kHz part (mono duplicated to two
   channels, each resampled). Each holds card embeddings against the CPU's,
   scores 4 clips a side on both, and compares the LSTM module alone on the
@@ -105,7 +111,8 @@ Each path runs with every launch count set to 0 just before it and read
 just after, so the counts show which kernels it went through: VGGish and
 PANN launch only their own log-mel kernel; CLAP launches the PANN log-mel
 kernel once per chunk, swin_block_fused exactly 10 times as often and
-window_attention_fused 2 times; Encodec launches none of the four. The
+window_attention_fused 2 times; encodec-24k launches none, encodec-48k
+group_norm 18 times a forward and nothing else. The
 `kernels` line gives each kernel's count on its main path (vggish,
 pann-16k, clap; the bf16 Swin kernels: step 10's bf16 CLAP run) and the
 PANN kernel's count on every path that runs it under "launches_by_path".
@@ -170,6 +177,14 @@ TF32X3_FLOPS = 495e12 / 3
 BF16_FLOPS = 989e12  # dense bf16 on the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 FAD_DELTA = 1e-3  # card vs CPU plain path, absolute and relative
+# GroupNorm kernel pair vs plain, float32 outputs of order 1: only the
+# moments' summation order (float32 within a thread) and the fma's single
+# rounding differ.
+GN_ATOL = 1e-5
+GN_EPS = 1e-5
+# The kernels of csrc/group_norm.cu that ptxas must report without a spill:
+# group_norm_moments_kernel and group_norm_apply_kernel, float and bf16.
+GN_KERNEL_COUNT = 4
 ENCODEC_CLIPS = 8  # per corpus, 10 s each
 ENCODEC_SMALL_CLIPS = 4  # per side, for the CPU plain path's score
 ENCODEC_MASKED_SECONDS = 4.0  # padded to 10 s; frames past 4 s are masked
@@ -703,8 +718,23 @@ def check_only(counts: dict, kernel: str, label: str) -> None:
 
 
 def check_none(counts: dict, label: str) -> None:
-    """An Encodec path launched none of the four kernels."""
+    """An encodec-24k path launched no kernel of the port."""
     check(not any(counts.values()), f"the {label} path launched {counts}")
+
+
+def check_group_norm_counts(counts: dict, forwards: int, label: str) -> None:
+    """An encodec-48k path: 18 group_norm launches a forward, no other kernel."""
+    stray = {k: v for k, v in counts.items() if k != "group_norm" and v}
+    check(forwards > 0 and counts["group_norm"] == 18 * forwards and not stray,
+          f"the {label} path launched {counts} in {forwards} forwards")
+
+
+def counted_forwards(fad) -> list:
+    """A list that grows by one with each forward of fad.model (a hook that
+    stays on the model)."""
+    calls = []
+    fad.model.register_forward_hook(lambda module, args, out: calls.append(1))
+    return calls
 
 
 def check_clap_counts(counts: dict, label: str) -> None:
@@ -1370,6 +1400,96 @@ def ragged_phase(torch, window_attn, clap, dtype) -> list:
     return rows
 
 
+def group_norm_kernel_phase(torch, group_norm_ops, encodec, _build, batch: int) -> dict:
+    """The GroupNorm kernel pair against its plain version at the 18 norms of
+    a 48 kHz forward of batch 10 s clips (x with channel offsets, a row
+    mean^2 / var about 4, gamma and beta drawn), float32: the error, two
+    launches bit for bit, and the times of the pair, the plain version and
+    ATen's nn.GroupNorm (the yardstick, never called by the port) beside
+    the bound, three passes over the tensor's bytes (the moments' read, the
+    apply's read and write) at the memory rate. bf16 at the first and last
+    norm in bf16 ulps of the output's largest magnitude. The ptxas lines of
+    csrc/group_norm.cu. Totals are a chunk's: the 18 norms once each."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 19)
+    F = torch.nn.functional
+    rows = []
+    max_err = 0.0
+    for channels, t in encodec.group_norm_shapes(int(48000 * CLIP_SECONDS)):
+        x = (torch.randn((batch, channels, t), generator=gen, device=dev)
+             + 0.3 * torch.randn((1, channels, 1), generator=gen, device=dev) + 2.0)
+        gamma = 1.0 + 0.2 * torch.randn(channels, generator=gen, device=dev)
+        beta = 0.3 * torch.randn(channels, generator=gen, device=dev)
+
+        def kernel():
+            return group_norm_ops.group_norm(x, gamma, beta, GN_EPS)
+
+        def plain():
+            return group_norm_ops.group_norm_reference(x, gamma, beta, GN_EPS)
+
+        def library():
+            return F.group_norm(x, 1, gamma, beta, GN_EPS)
+
+        out = kernel()
+        again = kernel()
+        torch.cuda.synchronize()
+        check(torch.equal(out, again), f"group_norm at {channels}x{t}: two launches differ")
+        ref = plain()
+        err = float((out - ref).abs().max())
+        library_err = float((library() - ref).abs().max())
+        del out, again, ref
+        max_err = max(max_err, err)
+        kernel_iters = max(3, min(50, int(2e9 // x.numel())))
+        plain_a = cuda_ms(torch, plain, 2, 1)
+        kern_a = cuda_ms(torch, kernel, kernel_iters)
+        lib_ms = cuda_ms(torch, library, kernel_iters)
+        kern_b = cuda_ms(torch, kernel, kernel_iters)
+        plain_b = cuda_ms(torch, plain, 2, 1)
+        nbytes = 3 * x.numel() * x.element_size()
+        bound_ms, bound_by = bound(3 * x.numel(), nbytes)  # 3 flops an element
+        row = {"shape": [batch, channels, t], "max_abs_err": err, "library_err": library_err,
+               "ms": (kern_a + kern_b) / 2, "plain_ms": (plain_a + plain_b) / 2,
+               "library_ms": lib_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+               "gb": nbytes / 1e9}
+        row["roofline_pct"] = 100.0 * row["bound_ms"] / row["ms"]
+        rows.append(row)
+        print(f"group_norm [{batch}, {channels}, {t}]: max_abs_err {err:.3e} (nn.GroupNorm "
+              f"{library_err:.3e}); kernel {row['ms']:.4f} ms ({kern_a:.4f}, {kern_b:.4f}), "
+              f"nn.GroupNorm {lib_ms:.4f} ms (yardstick), plain {row['plain_ms']:.3f} ms "
+              f"({plain_a:.3f}, {plain_b:.3f}); bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']}: {nbytes / 1e9:.2f} GB), {row['roofline_pct']:.1f} % of it")
+        del x, gamma, beta
+    check(max_err <= GN_ATOL, f"group_norm kernel vs plain {max_err} > {GN_ATOL}")
+    bf16 = []
+    for channels, t in (rows[0]["shape"][1:], rows[-1]["shape"][1:]):
+        x = (torch.randn((batch, channels, t), generator=gen, device=dev) + 2.0).to(torch.bfloat16)
+        gamma = (1.0 + 0.2 * torch.randn(channels, generator=gen, device=dev)).to(torch.bfloat16)
+        beta = (0.3 * torch.randn(channels, generator=gen, device=dev)).to(torch.bfloat16)
+        out = group_norm_ops.group_norm(x, gamma, beta, GN_EPS).float()
+        ref = group_norm_ops.group_norm_reference(x, gamma, beta, GN_EPS).float()
+        ulps = float((out - ref).abs().max() / bf16_ulp(torch, ref.abs().max()))
+        ms = cuda_ms(torch, lambda: group_norm_ops.group_norm(x, gamma, beta, GN_EPS),
+                     max(3, min(50, int(2e9 // x.numel()))))
+        bf16.append({"shape": [batch, channels, t], "max_err_ulps": ulps, "ms": ms,
+                     "bound_ms": 3 * x.numel() * 2 / HBM_BYTES_PER_S * 1e3})
+        print(f"group_norm bf16 [{batch}, {channels}, {t}]: {ulps:.2f} ulps of the largest "
+              f"output; kernel {ms:.4f} ms, bound {bf16[-1]['bound_ms']:.4f} ms")
+        check(ulps <= 1.0, f"group_norm bf16 at {channels}x{t}: {ulps} ulps")
+        del x, out, ref
+    ptxas = ptxas_rows(_build.library_path().with_suffix(".log").read_text(), "group_norm")
+    for name, regs, spill in ptxas:
+        print(f"ptxas group_norm: {name[:90]}: {regs} registers; {spill}")
+    check(len(ptxas) == GN_KERNEL_COUNT
+          and all(" 0 bytes spill stores, 0 bytes spill loads" in r[2] for r in ptxas),
+          f"group_norm kernels spill or are missing: {ptxas}")
+    total = {k: sum(r[k] for r in rows) for k in ("ms", "plain_ms", "library_ms", "bound_ms", "gb")}
+    print(f"group_norm, the 18 norms of a {batch}-clip chunk: kernel {total['ms']:.3f} ms, "
+          f"nn.GroupNorm {total['library_ms']:.3f} ms, plain {total['plain_ms']:.2f} ms, bound "
+          f"{total['bound_ms']:.3f} ms ({total['gb']:.1f} GB)")
+    torch.cuda.empty_cache()
+    return {"max_abs_err": max_err, **total, "rows": rows, "bf16": bf16, "ptxas": ptxas}
+
+
 def hgmma_counts(_build, functions: dict) -> dict:
     """HGMMA (wgmma) instructions in the built library's SASS, per launch key
     of functions (BF16_FUNCTIONS or F32_FUNCTIONS), by cuobjdump -sass."""
@@ -1777,9 +1897,10 @@ def main() -> int:
     import frechet_audio_distance_exported_tpu_torch as port
     from frechet_audio_distance_exported_tpu_torch import FrechetAudioDistance
     from frechet_audio_distance_exported_tpu_torch.config import apply_precision
-    from frechet_audio_distance_exported_tpu_torch.models import clap
+    from frechet_audio_distance_exported_tpu_torch.models import clap, encodec
     from frechet_audio_distance_exported_tpu_torch.ops import _build, cuda_frontend, cuda_pann_frontend
     from frechet_audio_distance_exported_tpu_torch.ops import frontends as fe
+    from frechet_audio_distance_exported_tpu_torch.ops import group_norm as group_norm_ops
     from frechet_audio_distance_exported_tpu_torch.ops import launches, window_attn
     from frechet_audio_distance_exported_tpu_torch.ops import stats as stats_ops
     from frechet_audio_distance_exported_tpu_torch.parallel import embed
@@ -1815,6 +1936,8 @@ def main() -> int:
     pann = pann_kernel_phase(torch, np, cuda_pann_frontend, fe, batch)
     swin = swin_kernel_phase(torch, np, window_attn, clap, batch)
     swin_f32 = float32_swin_checks(torch, window_attn, clap, _build, batch)
+    gnorm = group_norm_kernel_phase(torch, group_norm_ops, encodec,
+                                    _build, ENCODEC_FILE_BATCH["cuda"])
 
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
@@ -1908,11 +2031,13 @@ def main() -> int:
         fad_delta(scores["bg_ev"], cpu_clap, clap_bg, clap_ev, "clap")
         del fad, cpu_clap
 
-        # 7. The Encodec paths through the public API. They have no hand
-        #    kernel, so all four counts stay 0. encodec-24k on mono 24 kHz
+        # 7. The Encodec paths through the public API. encodec-24k launches
+        #    no kernel of the port, encodec-48k the GroupNorm pair 18 times
+        #    a forward and nothing else. encodec-24k on mono 24 kHz
         #    corpora, encodec-48k on stereo 48 kHz ones (channels=2), each
         #    a path of its own; then encodec-48k with channels=1 on the
         #    16 kHz part: mono duplicated to two channels, each resampled.
+        gn_launches = {}
         for model, sr, channels in (("encodec-24k", 24000, 1), ("encodec-48k", 48000, 2)):
             e_bg, e_ev, e_bg_small, e_ev_small = write_encodec_corpora(
                 tmp, audio_io, np, sr, channels)
@@ -1920,8 +2045,13 @@ def main() -> int:
             check(fad.pipeline.file_batch == ENCODEC_FILE_BATCH["cuda"],
                   f"{model} file_batch is not the CUDA Encodec default")
             timed_warmup(torch, fad, model, fad.pipeline.file_batch)
+            forwards = counted_forwards(fad)
             scores, counts = run_path(torch, fad, pair_calls(e_bg, e_ev), launches, None, model)
-            check_none(counts, model)
+            if sr == 24000:
+                check_none(counts, model)
+            else:
+                check_group_norm_counts(counts, len(forwards), model)
+                gn_launches[model] = counts["group_norm"]
             check_pair_scores(scores, model)
             cpu_fad = calculator(model, "cpu", channels)
             clips = [audio_io.load_audio(os.path.join(d, f), sr, channels)
@@ -1934,9 +2064,11 @@ def main() -> int:
             lstm_card_vs_cpu(torch, fad, cpu_fad, model)
             del fad, cpu_fad
         fad = calculator("encodec-48k", channels=1)
+        forwards = counted_forwards(fad)
         _, counts = run_path(torch, fad, [("bg_ev", (bg_small, ev_small), {})], launches, None,
                              "encodec-48k 16 kHz")
-        check_none(counts, "encodec-48k 16 kHz")
+        check_group_norm_counts(counts, len(forwards), "encodec-48k 16 kHz")
+        gn_launches["encodec-48k 16 kHz"] = counts["group_norm"]
         card_vs_cpu(np, fad, calculator("encodec-48k", "cpu", 1), clips16k(), 16000,
                     (2 * 48000 * int(CLIP_SECONDS) // 320, 128), "encodec-48k 16 kHz")
         del fad
@@ -2020,6 +2152,28 @@ def main() -> int:
         print(json.dumps({"numerics": numerics}))
 
     print(json.dumps({"kernels": [
+        {
+            "name": "group_norm",
+            "route": "cuda",
+            "source": "frechet_audio_distance_exported_tpu_torch/csrc/group_norm.cu",
+            "replaces": "none (XLA's fusion of "
+                        "frechet_audio_distance_exported_tpu/models/common.py:100 group_norm_full)",
+            "launches": gn_launches["encodec-48k"],
+            "launches_by_path": gn_launches,
+            "max_abs_err": gnorm["max_abs_err"],
+            "err_of": "normalised output, absolute",
+            "ms": gnorm["ms"],
+            "plain_ms": gnorm["plain_ms"],
+            "bound_ms": gnorm["bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": gnorm["library_ms"],
+            "arith": "fp32 sums a thread, fp64 across; fp32 fma",
+            "bound_flops_per_s": F32_FLOPS,
+            "at": "one 64-clip encodec-48k chunk: the 18 norms",
+            "shapes": gnorm["rows"],
+            "bf16": gnorm["bf16"],
+            "ptxas": gnorm["ptxas"],
+        },
         {
             "name": "fused_vggish_logmel",
             "route": "cuda",

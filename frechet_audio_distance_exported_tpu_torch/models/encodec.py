@@ -11,7 +11,9 @@ Port of frechet_audio_distance_exported_tpu/models/encodec.py (L54-311):
 
 The two variants: 24 kHz is mono and causal (weight norm folded into the
 weights); 48 kHz is stereo, centred, with GroupNorm(1, C) after every conv
-(JAX models/common.group_norm_full L100-129, as nn.GroupNorm).
+(JAX models/common.group_norm_full L100-129; GroupNorm1, an nn.GroupNorm
+whose forward is ops/group_norm.py: csrc/group_norm.cu's kernel pair on the
+card).
 
 Every conv reflect-pads by Encodec's math.ceil-based amounts first
 (_pad_amounts). The LSTM is nn.LSTM in float32 (cuDNN's on the card), which
@@ -20,7 +22,7 @@ computes the same recurrence, gate order i, f, g, o.
 Mixed precision (JAX L232-260, pipeline.cast_model): in a bf16 model the
 input is cast to conv_in's dtype and each stage's input to its weights'
 dtype, so the convolution stages run in bf16 (GroupNorm at 48 kHz takes
-float32 moments inside and returns bf16), while the LSTM and conv_out keep
+float64 moments inside and returns bf16), while the LSTM and conv_out keep
 float32 weights and the LSTM re-enters float32. FAD_TPU_LSTM_MATMUL=bfloat16
 (config.lstm_op_dtype, read at each forward) runs the recurrence as JAX
 _slstm(op_dtype=bfloat16) does (L100-183) instead of cuDNN's: layer 0's
@@ -45,6 +47,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .. import config
+from ..ops import group_norm as group_norm_ops
 
 EMBEDDING_SIZE = 128
 N_FILTERS = 32
@@ -68,6 +71,18 @@ def _pad_amounts(length: int, kernel: int, stride: int, causal: bool):
     return padding_total - right, right + extra
 
 
+class GroupNorm1(nn.GroupNorm):
+    """nn.GroupNorm(1, C), with its weight and bias, whose forward is
+    ops.group_norm: the hand-written kernel pair on the card, its plain
+    version on the CPU."""
+
+    def __init__(self, num_channels: int, eps: float = 1e-5):
+        super().__init__(1, num_channels, eps=eps)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return group_norm_ops.group_norm(x, self.weight, self.bias, self.eps)
+
+
 class SConv(nn.Module):
     """Reflect pad, conv, then GroupNorm(1, C) where the variant has it (JAX
     _sconv L65-73)."""
@@ -76,7 +91,7 @@ class SConv(nn.Module):
                  causal: bool = True, group_norm: bool = False):
         super().__init__()
         self.conv = nn.Conv1d(cin, cout, kernel, stride)
-        self.gn = nn.GroupNorm(1, cout, eps=1e-5) if group_norm else None
+        self.gn = GroupNorm1(cout) if group_norm else None
         self.causal = causal
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -230,6 +245,20 @@ class Encodec(nn.Module):
             h = stage(h.to(stage.res.conv1.conv.weight.dtype))
         h = self.conv_out(F.elu(self.lstm(h)))  # the LSTM returns float32
         return h.transpose(1, 2)  # [B, T, 128]
+
+
+def group_norm_shapes(samples: int) -> list:
+    """(C, T) of the input of each of the 48 kHz encoder's 18 GroupNorms, in
+    order, on a waveform of samples samples: conv_in; per stage the
+    residual block's conv1, conv2 and shortcut, then the strided conv
+    (T -> ceil(T / ratio)); conv_out."""
+    shapes, t = [(N_FILTERS, samples)], samples
+    for i, ratio in enumerate(RATIOS):
+        dim = N_FILTERS * 2 ** i
+        shapes += [(dim // 2, t), (dim, t), (dim, t)]
+        t = -(-t // ratio)
+        shapes.append((2 * dim, t))
+    return shapes + [(DIMENSION, t)]
 
 
 def encodec_for_rate(sample_rate: int) -> Encodec:

@@ -212,4 +212,23 @@ def load_library() -> ctypes.CDLL:
         entry = getattr(lib, name)
         entry.argtypes = argtypes
         entry.restype = ctypes.c_int
+    # csrc/group_norm.cu
+    lib.group_norm_launch.argtypes = [
+        ctypes.c_void_p,  # x [B, C, T]
+        ctypes.c_void_p,  # gamma [C]
+        ctypes.c_void_p,  # beta [C]
+        ctypes.c_void_p,  # partial [B, splits, 2] float64 scratch
+        ctypes.c_void_p,  # out
+        ctypes.c_int,  # batch
+        ctypes.c_longlong,  # n = C * T
+        ctypes.c_int,  # T
+        ctypes.c_longlong,  # chunk
+        ctypes.c_int,  # splits
+        ctypes.c_double,  # eps
+        ctypes.c_int,  # bf16
+        ctypes.c_void_p,  # cudaStream_t
+    ]
+    lib.group_norm_launch.restype = ctypes.c_int
+    lib.group_norm_blocks_per_sm.argtypes = [ctypes.c_int]  # bf16
+    lib.group_norm_blocks_per_sm.restype = ctypes.c_int
     return lib

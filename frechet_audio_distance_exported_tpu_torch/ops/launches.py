@@ -1,5 +1,6 @@
 """Kernel launch counts of this process, one key per CUDA kernel wrapper and
-dtype (the bf16 instances of the Swin kernels count as "<name>[bf16]").
+dtype (the bf16 instances of the Swin kernels and of GroupNorm count as
+"<name>[bf16]").
 
 A wrapper adds one to its own key where it launches its kernel, and nowhere
 else: a call that goes to the plain version does not count, and a wrapper
@@ -16,6 +17,8 @@ LAUNCHES = {
     "window_attention_fused": 0,
     "swin_block_fused[bf16]": 0,
     "window_attention_fused[bf16]": 0,
+    "group_norm": 0,
+    "group_norm[bf16]": 0,
 }
 
 
