@@ -1208,14 +1208,15 @@ def decode_host_corpora(np, audio_io, corpora: dict) -> dict:
     return times
 
 
-def host_chunk_prep(np, audio_io, resample, pipeline, paths, target_sr: int, kind,
-                    workers: int, native_resample: bool = True) -> dict:
+def host_chunk_prep(audio_io, resample, pipeline, paths, family, workers: int,
+                    native_resample: bool = True) -> dict:
     """Host preparation of one chunk of files, stage by stage: decode (a
-    pool of `workers` threads, as score() loads), mono mix and resample (the
-    same pool; in NumPy under FAD_TPU_DISABLE_NATIVE=1 unless
-    native_resample), then the pipeline's own steps ("vggish": float32 and
-    the int16 grid check; else `kind` is CLAP's _clap_prep) and _pack_wave,
-    as the pipeline runs them. ms per stage, the wire's dtype."""
+    pool of `workers` threads, as score() loads), mono mix and resample to
+    the family's rate (the same pool; in NumPy under
+    FAD_TPU_DISABLE_NATIVE=1 unless native_resample), then the pipeline's
+    own steps (`family`, a pipeline.Family: its prepare, the wire included)
+    and _pack_wave, as the pipeline runs them. ms per stage, the wire's
+    dtype."""
     from multiprocessing.dummy import Pool as ThreadPool
 
     out = {}
@@ -1227,7 +1228,7 @@ def host_chunk_prep(np, audio_io, resample, pipeline, paths, target_sr: int, kin
         def mix_resample(item):
             data, sr = item
             mono = data.mean(axis=1) if data.ndim > 1 else data
-            return mono if sr == target_sr else resample(mono, sr, target_sr)
+            return mono if sr == family.rate else resample(mono, sr, family.rate)
 
         if not native_resample:
             os.environ["FAD_TPU_DISABLE_NATIVE"] = "1"
@@ -1236,18 +1237,9 @@ def host_chunk_prep(np, audio_io, resample, pipeline, paths, target_sr: int, kin
         finally:
             os.environ.pop("FAD_TPU_DISABLE_NATIVE", None)
         t2 = time.perf_counter()
-    if kind == "vggish":
-        rows = []
-        for clip in clips:
-            data = clip.astype(np.float32)
-            q = pipeline.as_int16_exact(data)
-            rows.append(data if q is None else q)
-        full_scale = 32768.0
-    else:
-        rows = [kind(clip, target_sr)[0] for clip in clips]
-        full_scale = 32767.0
+    rows = [family.prepare(clip, family.rate, False)[0] for clip in clips]
     wave = pipeline._pack_wave(rows, len(rows), pipeline.bucket_len(max(len(r) for r in rows)),
-                               full_scale)
+                               family.full_scale)
     t3 = time.perf_counter()
     out.update(decode_ms=(t1 - t0) * 1e3, mix_resample_ms=(t2 - t1) * 1e3,
                prep_pack_ms=(t3 - t2) * 1e3, total_ms=(t3 - t0) * 1e3, wire=str(wave.dtype),
@@ -1807,17 +1799,17 @@ def host_runtime_phase(torch, np, tmp: Path, calculator, launches, smi: str,
                       sorted(os.listdir(dirs[s]))]
     int16_paths = [os.path.join(dirs[s], f) for s in ("bg16", "ev16") for f in
                    sorted(os.listdir(dirs[s]))]
+    family = fad.pipeline.family
     chunks = {
-        "vggish_44k_resample_c": host_chunk_prep(np, audio_io, resample, pipeline, resample_paths,
-                                                 16000, "vggish", workers),
-        "vggish_16k_int16_wire": host_chunk_prep(np, audio_io, resample, pipeline, int16_paths,
-                                                 16000, "vggish", workers),
+        "vggish_44k_resample_c": host_chunk_prep(audio_io, resample, pipeline, resample_paths,
+                                                 family, workers),
+        "vggish_16k_int16_wire": host_chunk_prep(audio_io, resample, pipeline, int16_paths,
+                                                 family, workers),
         "vggish_44k_resample_c_one_thread": host_chunk_prep(
-            np, audio_io, resample, pipeline, resample_paths, 16000, "vggish", 1),
+            audio_io, resample, pipeline, resample_paths, family, 1),
     }
     chunks["vggish_44k_resample_numpy"] = host_chunk_prep(
-        np, audio_io, resample, pipeline, resample_paths, 16000, "vggish", workers,
-        native_resample=False)
+        audio_io, resample, pipeline, resample_paths, family, workers, native_resample=False)
     t0 = time.perf_counter()
     audio_io.load_audio_paths(resample_paths, 16000, 1, num_workers=workers)
     chunks["vggish_44k_load_audio_paths_ms"] = (time.perf_counter() - t0) * 1e3
@@ -1833,9 +1825,8 @@ def host_runtime_phase(torch, np, tmp: Path, calculator, launches, smi: str,
     clap_counts = counts
     fad_delta(clap_scores["small"], calculator("clap", "cpu"), dirs["bg_clap"], dirs["ev_clap"],
               "host runtime clap (4 a side)")
-    chunks["clap_44k_resample_c"] = host_chunk_prep(np, audio_io, resample, pipeline,
-                                                    resample_paths, 48000,
-                                                    fad.pipeline._clap_prep, workers)
+    chunks["clap_44k_resample_c"] = host_chunk_prep(audio_io, resample, pipeline,
+                                                    resample_paths, fad.pipeline.family, workers)
     del fad
 
     # (e) One clip: decode per format, and the resampler, C against NumPy.
@@ -1905,10 +1896,7 @@ def main() -> int:
     from frechet_audio_distance_exported_tpu_torch.ops import stats as stats_ops
     from frechet_audio_distance_exported_tpu_torch.parallel import embed
     from frechet_audio_distance_exported_tpu_torch.parallel import mesh as mesh_mod
-    from frechet_audio_distance_exported_tpu_torch.pipeline import (
-        DEFAULT_FILE_BATCH,
-        ENCODEC_FILE_BATCH,
-    )
+    from frechet_audio_distance_exported_tpu_torch.pipeline import FAMILIES
     from frechet_audio_distance_exported_tpu_torch.utils import audio_io
 
     check(Path(port.__file__).resolve().is_relative_to(ROOT),
@@ -1931,13 +1919,13 @@ def main() -> int:
     #    (exact float32 on both sides: TF32 off, as the public API sets it).
     check(apply_precision() == "highest", "FAD_TPU_PRECISION is set: the kernels' checks need "
           "exact float32")
-    batch = DEFAULT_FILE_BATCH["cuda"]
+    batch = FAMILIES["vggish"].file_batch["cuda"]
     vggish = vggish_kernel_phase(torch, np, cuda_frontend, fe, batch)
     pann = pann_kernel_phase(torch, np, cuda_pann_frontend, fe, batch)
     swin = swin_kernel_phase(torch, np, window_attn, clap, batch)
     swin_f32 = float32_swin_checks(torch, window_attn, clap, _build, batch)
     gnorm = group_norm_kernel_phase(torch, group_norm_ops, encodec,
-                                    _build, ENCODEC_FILE_BATCH["cuda"])
+                                    _build, FAMILIES["encodec"].file_batch["cuda"])
 
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
@@ -2042,7 +2030,7 @@ def main() -> int:
             e_bg, e_ev, e_bg_small, e_ev_small = write_encodec_corpora(
                 tmp, audio_io, np, sr, channels)
             fad = calculator(model, channels=channels)
-            check(fad.pipeline.file_batch == ENCODEC_FILE_BATCH["cuda"],
+            check(fad.pipeline.file_batch == FAMILIES["encodec"].file_batch["cuda"],
                   f"{model} file_batch is not the CUDA Encodec default")
             timed_warmup(torch, fad, model, fad.pipeline.file_batch)
             forwards = counted_forwards(fad)

@@ -21,13 +21,9 @@ import torch
 
 from . import registry
 from .config import apply_precision, exact_sqrtm, resolve_device
-from .models.clap import CLAP
-from .models.encodec import encodec_for_rate
-from .models.pann import PANN
-from .models.vggish import VGGish
 from .ops import stats as stats_ops
 from .parallel.embed import merge_stats
-from .pipeline import EmbeddingPipeline, StatsSink
+from .pipeline import FAMILIES, EmbeddingPipeline, StatsSink
 from .utils import audio_io, profiling
 from .utils import weights as weight_store
 
@@ -150,17 +146,12 @@ class FrechetAudioDistance:
             self.model_name, self.ckpt_dir, weights=self._weights_mode, seed=self._seed
         )
         cfg = registry.ported_model_config(self.model_name)
+        family = FAMILIES[cfg.family]
         with torch.device("meta"):  # no throwaway init of the full-size weights
-            if cfg.family == "encodec":
-                model = encodec_for_rate(cfg.sample_rate)
-            else:
-                model = {"vggish": VGGish, "pann": PANN, "clap": CLAP}[cfg.family]()
+            model = family.build(cfg.sample_rate)
         model.load_state_dict(state, assign=True)
         self.model = model.to(self.device).eval()
-        if cfg.family == "encodec":
-            # After the move: cuDNN wants the LSTM's weights in one buffer,
-            # or it warns and copies them on every call.
-            self.model.lstm.flatten_parameters()
+        family.on_device(self.model)
         self.pipeline = EmbeddingPipeline(
             self.model_name,
             self.model,

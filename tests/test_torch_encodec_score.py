@@ -180,7 +180,7 @@ def test_cpu_run_launches_no_kernel_and_warms_up(slice_):
     before = launches.read()
     slice_.fad.warmup(durations=(0.5,), num_files=1)
     assert launches.read() == before
-    assert slice_.fad.pipeline.file_batch == pipeline.ENCODEC_FILE_BATCH["cpu"] == 16
+    assert slice_.fad.pipeline.file_batch == pipeline.EncodecFamily.file_batch["cpu"] == 16
 
 
 @pytest.fixture(scope="module")
