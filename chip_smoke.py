@@ -18,12 +18,16 @@ kernels are also held to their plain versions at a ragged BW of each
 (odd, shifted, nine masks), their ptxas lines (no spill), the HGMMA
 instructions of the GEMM they launch (none fails the run), and
 torch.matmul's float32 time on the stage-4 GEMM shapes, TF32 off and on,
-is printed as a yardstick. The GroupNorm pair (csrc/group_norm.cu) is held
-to its plain version at the 18 norms of a 48 kHz Encodec forward of 64
-clips, each timed beside the plain version, ATen's nn.GroupNorm (the
-yardstick, library_ms) and its bound (three passes over the tensor's bytes),
-two launches bit for bit, bf16 at the largest and the smallest norm in bf16
-ulps, and its ptxas lines (no spill). Then it
+is printed as a yardstick. The GroupNorm pair (csrc/group_norm.cu) runs
+the 14 applies of a 48 kHz Encodec forward of 64 clips as the forward calls
+them (each form with its norms, a conv bias and its pads, recorded from a
+forward), each held to its plain version (GN_ATOL) and to ATen's chain
+around the pair's own norm (bias add_, +, ELU, pad) bit for bit, two
+launches bit for bit, and timed beside that chain (what the forward ran
+before the fold), the chain on ATen's nn.GroupNorm (the yardstick,
+library_ms), the plain version and its bound (each norm read by the
+moments and the apply, and the form's writes); bf16 at every apply within
+one ulp of the chain; and its ptxas lines (no spill). Then it
 drives the ported paths through the public API,
 FrechetAudioDistance(weights="random", device="cuda"):
 - VGGish: scores two 16 kHz WAV corpora and checks the results;
@@ -112,7 +116,8 @@ just after, so the counts show which kernels it went through: VGGish and
 PANN launch only their own log-mel kernel; CLAP launches the PANN log-mel
 kernel once per chunk, swin_block_fused exactly 10 times as often and
 window_attention_fused 2 times; encodec-24k launches none, encodec-48k
-group_norm 18 times a forward and nothing else. The
+group_norm 18 times a forward, its applies 4 split, 4 elu, 4 residual and
+2 plain, and nothing else. The
 `kernels` line gives each kernel's count on its main path (vggish,
 pann-16k, clap; the bf16 Swin kernels: step 10's bf16 CLAP run) and the
 PANN kernel's count on every path that runs it under "launches_by_path".
@@ -183,8 +188,11 @@ FAD_DELTA = 1e-3  # card vs CPU plain path, absolute and relative
 GN_ATOL = 1e-5
 GN_EPS = 1e-5
 # The kernels of csrc/group_norm.cu that ptxas must report without a spill:
-# group_norm_moments_kernel and group_norm_apply_kernel, float and bf16.
-GN_KERNEL_COUNT = 4
+# group_norm_moments_kernel and group_norm_apply_kernel's four forms, float
+# and bf16.
+GN_KERNEL_COUNT = 10
+# A 48 kHz forward's applies by form (ops/group_norm.py's FORMS).
+GN_FORMS = {"split": 4, "elu": 4, "residual": 4, "plain": 2}
 ENCODEC_CLIPS = 8  # per corpus, 10 s each
 ENCODEC_SMALL_CLIPS = 4  # per side, for the CPU plain path's score
 ENCODEC_MASKED_SECONDS = 4.0  # padded to 10 s; frames past 4 s are masked
@@ -723,9 +731,12 @@ def check_none(counts: dict, label: str) -> None:
 
 
 def check_group_norm_counts(counts: dict, forwards: int, label: str) -> None:
-    """An encodec-48k path: 18 group_norm launches a forward, no other kernel."""
-    stray = {k: v for k, v in counts.items() if k != "group_norm" and v}
-    check(forwards > 0 and counts["group_norm"] == 18 * forwards and not stray,
+    """An encodec-48k path: 18 group_norm launches a forward, its applies by
+    form (GN_FORMS), no other kernel."""
+    want = {"group_norm": 18 * forwards,
+            **{f"group_norm_apply.{form}": n * forwards for form, n in GN_FORMS.items()}}
+    got = {k: v for k, v in counts.items() if v}
+    check(forwards > 0 and got == want,
           f"the {label} path launched {counts} in {forwards} forwards")
 
 
@@ -1392,91 +1403,201 @@ def ragged_phase(torch, window_attn, clap, dtype) -> list:
     return rows
 
 
-def group_norm_kernel_phase(torch, group_norm_ops, encodec, _build, batch: int) -> dict:
-    """The GroupNorm kernel pair against its plain version at the 18 norms of
-    a 48 kHz forward of batch 10 s clips (x with channel offsets, a row
-    mean^2 / var about 4, gamma and beta drawn), float32: the error, two
-    launches bit for bit, and the times of the pair, the plain version and
-    ATen's nn.GroupNorm (the yardstick, never called by the port) beside
-    the bound, three passes over the tensor's bytes (the moments' read, the
-    apply's read and write) at the memory rate. bf16 at the first and last
-    norm in bf16 ulps of the output's largest magnitude. The ptxas lines of
-    csrc/group_norm.cu. Totals are a chunk's: the 18 norms once each."""
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(SEED + 19)
-    F = torch.nn.functional
-    rows = []
-    max_err = 0.0
-    for channels, t in encodec.group_norm_shapes(int(48000 * CLIP_SECONDS)):
-        x = (torch.randn((batch, channels, t), generator=gen, device=dev)
+def forward_applies(torch, group_norm_ops, encodec, samples: int) -> list:
+    """The applies of a 48 kHz forward in the order it calls them: (form,
+    [(C, T) of each norm], left, right), recorded from a forward of one
+    clip of samples samples on the card."""
+    calls = []
+    epilogue = group_norm_ops._epilogue
+
+    def record(form, norms, left, right):
+        calls.append((form, [tuple(n.y.shape[1:]) for n in norms], left, right))
+        return epilogue(form, norms, left, right)
+
+    model = encodec.encodec_for_rate(48000).eval().cuda()
+    group_norm_ops._epilogue = record
+    try:
+        with torch.inference_mode():
+            model(torch.zeros((1, 2, samples), device="cuda"))
+    finally:
+        group_norm_ops._epilogue = epilogue
+    return calls
+
+
+def draw_norms(torch, group_norm_ops, gen, batch: int, shapes: list, dtype) -> list:
+    """A Norm of each (C, T): conv outputs with channel offsets and a row
+    mean^2 / var about 4, a conv bias, gamma and beta drawn, in dtype."""
+    dev = gen.device
+    out = []
+    for channels, t in shapes:
+        y = (torch.randn((batch, channels, t), generator=gen, device=dev)
              + 0.3 * torch.randn((1, channels, 1), generator=gen, device=dev) + 2.0)
+        conv_bias = 0.5 * torch.randn(channels, generator=gen, device=dev)
         gamma = 1.0 + 0.2 * torch.randn(channels, generator=gen, device=dev)
         beta = 0.3 * torch.randn(channels, generator=gen, device=dev)
+        out.append(group_norm_ops.Norm(y.to(dtype), conv_bias.to(dtype), gamma.to(dtype),
+                                       beta.to(dtype), GN_EPS))
+    return out
+
+
+def gn_form(group_norm_ops, form: str, norms: list, left: int, right: int):
+    """The wrapper of form, as the encoder calls it."""
+    if form == "plain":
+        return group_norm_ops.plain(norms[0])
+    if form == "residual":
+        return group_norm_ops.residual(norms[0], norms[1], left, right)
+    fn = group_norm_ops.elu_pad if form == "elu" else group_norm_ops.split
+    return fn(norms[0], left, right)
+
+
+def gn_chain(torch, form: str, norms: list, left: int, right: int, norm):
+    """ATen's chain that form folds into the apply: the conv's bias added
+    as ATen's add_ adds it, norm(x, Norm) alone, then the residual sum, F.elu
+    and F.pad as the form has them."""
+    F = torch.nn.functional
+    g = [norm(n.y + n.conv_bias[:, None], n) for n in norms]
+    if form == "plain":
+        return g[0]
+    act = F.elu(g[0] + g[1] if form == "residual" else g[0])
+    if left or right:
+        act = F.pad(act, (left, right), mode="reflect")
+    return (g[0], act) if form == "split" else act
+
+
+def as_tuple(out) -> tuple:
+    return out if isinstance(out, tuple) else (out,)
+
+
+def gn_bytes(form: str, shapes: list, left: int, right: int, batch: int, size: int) -> int:
+    """The pair's bytes for one apply of form: each norm's input read by its
+    moments and by the apply, and what the form writes (g, and the padded
+    ELU)."""
+    channels, t = shapes[0]
+    n = channels * t
+    writes = (n if form in ("plain", "split") else 0) + (
+        channels * (left + t + right) if form != "plain" else 0)
+    return batch * size * (2 * n * len(shapes) + writes)
+
+
+def group_norm_kernel_phase(torch, group_norm_ops, encodec, _build, batch: int) -> dict:
+    """The GroupNorm pair as a 48 kHz forward of batch 10 s clips calls it:
+    each of its 14 applies (GN_FORMS, recorded from a forward: its form,
+    norms and pads) on drawn conv outputs with a conv bias, float32: against
+    the plain version (ops/group_norm._compose on the same card tensors,
+    GN_ATOL), against ATen's chain around the pair's own norm bit for bit
+    (the bias add_, group_norm(), +, F.elu, F.pad), two launches bit for
+    bit; timed beside that chain (unfused_ms: what the forward ran before
+    the fold), the same chain on ATen's F.group_norm (the yardstick,
+    library_ms), the plain version and the bound, the pair's bytes (each
+    norm read by the moments and the apply, and the form's writes) at the
+    memory rate. bf16 at every apply: within one bf16 ulp of the chain,
+    element by element, and in bf16 ulps of the largest output from the
+    plain version (one a norm). The ptxas lines of csrc/group_norm.cu.
+    Totals are a chunk's: the 14 applies (18 norms) once each."""
+    samples = int(48000 * CLIP_SECONDS)
+    calls = forward_applies(torch, group_norm_ops, encodec, samples)
+    forms = [form for form, *_ in calls]
+    check({f: forms.count(f) for f in GN_FORMS} == GN_FORMS,
+          f"a 48 kHz forward's applies: {forms}")
+    check([s for _, shapes, *_ in calls for s in shapes] == encodec.group_norm_shapes(samples),
+          "the applies' norms are not group_norm_shapes")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 19)
+    F = torch.nn.functional
+
+    def pair(x, n):
+        return group_norm_ops.group_norm(x, n.weight, n.bias, n.eps)
+
+    def library(x, n):
+        return F.group_norm(x, 1, n.weight, n.bias, n.eps)
+
+    rows, max_err = [], 0.0
+    for form, shapes, left, right in calls:
+        norms = draw_norms(torch, group_norm_ops, gen, batch, shapes, torch.float32)
+        label = f"group_norm {form} {[batch, *shapes[0]]} x{len(shapes)} pad ({left}, {right})"
 
         def kernel():
-            return group_norm_ops.group_norm(x, gamma, beta, GN_EPS)
+            return gn_form(group_norm_ops, form, norms, left, right)
+
+        def unfused():
+            return gn_chain(torch, form, norms, left, right, pair)
+
+        def aten():
+            return gn_chain(torch, form, norms, left, right, library)
 
         def plain():
-            return group_norm_ops.group_norm_reference(x, gamma, beta, GN_EPS)
+            return group_norm_ops._compose(form, norms, left, right)
 
-        def library():
-            return F.group_norm(x, 1, gamma, beta, GN_EPS)
-
-        out = kernel()
-        again = kernel()
+        out, again = as_tuple(kernel()), as_tuple(kernel())
         torch.cuda.synchronize()
-        check(torch.equal(out, again), f"group_norm at {channels}x{t}: two launches differ")
-        ref = plain()
-        err = float((out - ref).abs().max())
-        library_err = float((library() - ref).abs().max())
-        del out, again, ref
+        check(all(torch.equal(a, b) for a, b in zip(out, again)), f"{label}: two launches differ")
+        del again
+        chain = as_tuple(unfused())
+        check(len(out) == len(chain) and all(a.shape == b.shape and torch.equal(a, b)
+                                             for a, b in zip(out, chain)),
+              f"{label}: not the unfused chain's bits")
+        del chain
+        ref = as_tuple(plain())
+        err = max(float((a - b).abs().max()) for a, b in zip(out, ref))
+        del out, ref
         max_err = max(max_err, err)
-        kernel_iters = max(3, min(50, int(2e9 // x.numel())))
+        numel = batch * shapes[0][0] * shapes[0][1]
+        iters = max(3, min(50, int(2e9 // numel)))
         plain_a = cuda_ms(torch, plain, 2, 1)
-        kern_a = cuda_ms(torch, kernel, kernel_iters)
-        lib_ms = cuda_ms(torch, library, kernel_iters)
-        kern_b = cuda_ms(torch, kernel, kernel_iters)
+        kern_a = cuda_ms(torch, kernel, iters)
+        unfused_ms = cuda_ms(torch, unfused, iters)
+        library_ms = cuda_ms(torch, aten, iters)
+        kern_b = cuda_ms(torch, kernel, iters)
         plain_b = cuda_ms(torch, plain, 2, 1)
-        nbytes = 3 * x.numel() * x.element_size()
-        bound_ms, bound_by = bound(3 * x.numel(), nbytes)  # 3 flops an element
-        row = {"shape": [batch, channels, t], "max_abs_err": err, "library_err": library_err,
-               "ms": (kern_a + kern_b) / 2, "plain_ms": (plain_a + plain_b) / 2,
-               "library_ms": lib_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-               "gb": nbytes / 1e9}
+        nbytes = gn_bytes(form, shapes, left, right, batch, 4)
+        row = {"form": form, "shape": [batch, *shapes[0]], "norms": len(shapes),
+               "pad": [left, right], "max_abs_err": err, "ms": (kern_a + kern_b) / 2,
+               "unfused_ms": unfused_ms, "library_ms": library_ms,
+               "plain_ms": (plain_a + plain_b) / 2,
+               "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "gb": nbytes / 1e9}
         row["roofline_pct"] = 100.0 * row["bound_ms"] / row["ms"]
         rows.append(row)
-        print(f"group_norm [{batch}, {channels}, {t}]: max_abs_err {err:.3e} (nn.GroupNorm "
-              f"{library_err:.3e}); kernel {row['ms']:.4f} ms ({kern_a:.4f}, {kern_b:.4f}), "
-              f"nn.GroupNorm {lib_ms:.4f} ms (yardstick), plain {row['plain_ms']:.3f} ms "
-              f"({plain_a:.3f}, {plain_b:.3f}); bound {row['bound_ms']:.4f} ms "
-              f"({row['bound_by']}: {nbytes / 1e9:.2f} GB), {row['roofline_pct']:.1f} % of it")
-        del x, gamma, beta
-    check(max_err <= GN_ATOL, f"group_norm kernel vs plain {max_err} > {GN_ATOL}")
+        print(f"{label}: max_abs_err {err:.3e}, the chain's bits; kernel {row['ms']:.4f} ms "
+              f"({kern_a:.4f}, {kern_b:.4f}), unfused {unfused_ms:.4f} ms, on nn.GroupNorm "
+              f"{library_ms:.4f} ms (yardstick), plain {row['plain_ms']:.3f} ms; bound "
+              f"{row['bound_ms']:.4f} ms ({row['gb']:.2f} GB), {row['roofline_pct']:.1f} % of it")
+        del norms
+    check(max_err <= GN_ATOL, f"group_norm forms vs plain {max_err} > {GN_ATOL}")
     bf16 = []
-    for channels, t in (rows[0]["shape"][1:], rows[-1]["shape"][1:]):
-        x = (torch.randn((batch, channels, t), generator=gen, device=dev) + 2.0).to(torch.bfloat16)
-        gamma = (1.0 + 0.2 * torch.randn(channels, generator=gen, device=dev)).to(torch.bfloat16)
-        beta = (0.3 * torch.randn(channels, generator=gen, device=dev)).to(torch.bfloat16)
-        out = group_norm_ops.group_norm(x, gamma, beta, GN_EPS).float()
-        ref = group_norm_ops.group_norm_reference(x, gamma, beta, GN_EPS).float()
-        ulps = float((out - ref).abs().max() / bf16_ulp(torch, ref.abs().max()))
-        ms = cuda_ms(torch, lambda: group_norm_ops.group_norm(x, gamma, beta, GN_EPS),
-                     max(3, min(50, int(2e9 // x.numel()))))
-        bf16.append({"shape": [batch, channels, t], "max_err_ulps": ulps, "ms": ms,
-                     "bound_ms": 3 * x.numel() * 2 / HBM_BYTES_PER_S * 1e3})
-        print(f"group_norm bf16 [{batch}, {channels}, {t}]: {ulps:.2f} ulps of the largest "
-              f"output; kernel {ms:.4f} ms, bound {bf16[-1]['bound_ms']:.4f} ms")
-        check(ulps <= 1.0, f"group_norm bf16 at {channels}x{t}: {ulps} ulps")
-        del x, out, ref
+    for form, shapes, left, right in calls:
+        norms = draw_norms(torch, group_norm_ops, gen, batch, shapes, torch.bfloat16)
+        out = as_tuple(gn_form(group_norm_ops, form, norms, left, right))
+        chain = as_tuple(gn_chain(torch, form, norms, left, right, pair))
+        within = all(a.shape == b.shape and bool(((a.float() - b.float()).abs() <= bf16_ulp(
+            torch, torch.maximum(a.float().abs(), b.float().abs()))).all())
+            for a, b in zip(out, chain))
+        del chain
+        ref = as_tuple(group_norm_ops._compose(form, norms, left, right))
+        ulps = max(float((a.float() - b.float()).abs().max()
+                         / bf16_ulp(torch, b.float().abs().max())) for a, b in zip(out, ref))
+        del out, ref
+        ms = cuda_ms(torch, lambda: gn_form(group_norm_ops, form, norms, left, right),
+                     max(3, min(50, int(2e9 // (batch * shapes[0][0] * shapes[0][1])))))
+        nbytes = gn_bytes(form, shapes, left, right, batch, 2)
+        bf16.append({"form": form, "shape": [batch, *shapes[0]], "norms": len(shapes),
+                     "max_err_ulps": ulps, "within_one_ulp_of_chain": within, "ms": ms,
+                     "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3})
+        print(f"group_norm bf16 {form} {[batch, *shapes[0]]} x{len(shapes)}: within one ulp of "
+              f"the chain {within}; {ulps:.2f} ulps of the largest output from plain; kernel "
+              f"{ms:.4f} ms, bound {bf16[-1]['bound_ms']:.4f} ms")
+        check(within, f"group_norm bf16 {form} at {shapes}: not within one ulp of the chain")
+        check(ulps <= len(shapes), f"group_norm bf16 {form} at {shapes}: {ulps} ulps of plain")
+        del norms
     ptxas = ptxas_rows(_build.library_path().with_suffix(".log").read_text(), "group_norm")
     for name, regs, spill in ptxas:
         print(f"ptxas group_norm: {name[:90]}: {regs} registers; {spill}")
     check(len(ptxas) == GN_KERNEL_COUNT
           and all(" 0 bytes spill stores, 0 bytes spill loads" in r[2] for r in ptxas),
           f"group_norm kernels spill or are missing: {ptxas}")
-    total = {k: sum(r[k] for r in rows) for k in ("ms", "plain_ms", "library_ms", "bound_ms", "gb")}
-    print(f"group_norm, the 18 norms of a {batch}-clip chunk: kernel {total['ms']:.3f} ms, "
-          f"nn.GroupNorm {total['library_ms']:.3f} ms, plain {total['plain_ms']:.2f} ms, bound "
+    keys = ("ms", "unfused_ms", "library_ms", "plain_ms", "bound_ms", "gb")
+    total = {k: sum(r[k] for r in rows) for k in keys}
+    print(f"group_norm, the 14 applies (18 norms) of a {batch}-clip chunk: kernel "
+          f"{total['ms']:.3f} ms, unfused {total['unfused_ms']:.3f} ms, on nn.GroupNorm "
+          f"{total['library_ms']:.3f} ms, plain {total['plain_ms']:.2f} ms, bound "
           f"{total['bound_ms']:.3f} ms ({total['gb']:.1f} GB)")
     torch.cuda.empty_cache()
     return {"max_abs_err": max_err, **total, "rows": rows, "bf16": bf16, "ptxas": ptxas}
@@ -2025,7 +2146,7 @@ def main() -> int:
         #    corpora, encodec-48k on stereo 48 kHz ones (channels=2), each
         #    a path of its own; then encodec-48k with channels=1 on the
         #    16 kHz part: mono duplicated to two channels, each resampled.
-        gn_launches = {}
+        gn_launches, gn_forms = {}, {}
         for model, sr, channels in (("encodec-24k", 24000, 1), ("encodec-48k", 48000, 2)):
             e_bg, e_ev, e_bg_small, e_ev_small = write_encodec_corpora(
                 tmp, audio_io, np, sr, channels)
@@ -2040,6 +2161,7 @@ def main() -> int:
             else:
                 check_group_norm_counts(counts, len(forwards), model)
                 gn_launches[model] = counts["group_norm"]
+                gn_forms[model] = {form: counts[f"group_norm_apply.{form}"] for form in GN_FORMS}
             check_pair_scores(scores, model)
             cpu_fad = calculator(model, "cpu", channels)
             clips = [audio_io.load_audio(os.path.join(d, f), sr, channels)
@@ -2057,6 +2179,8 @@ def main() -> int:
                              "encodec-48k 16 kHz")
         check_group_norm_counts(counts, len(forwards), "encodec-48k 16 kHz")
         gn_launches["encodec-48k 16 kHz"] = counts["group_norm"]
+        gn_forms["encodec-48k 16 kHz"] = {form: counts[f"group_norm_apply.{form}"]
+                                          for form in GN_FORMS}
         card_vs_cpu(np, fad, calculator("encodec-48k", "cpu", 1), clips16k(), 16000,
                     (2 * 48000 * int(CLIP_SECONDS) // 320, 128), "encodec-48k 16 kHz")
         del fad
@@ -2148,16 +2272,20 @@ def main() -> int:
                         "frechet_audio_distance_exported_tpu/models/common.py:100 group_norm_full)",
             "launches": gn_launches["encodec-48k"],
             "launches_by_path": gn_launches,
+            "form_launches": gn_forms["encodec-48k"],
+            "form_launches_by_path": gn_forms,
             "max_abs_err": gnorm["max_abs_err"],
-            "err_of": "normalised output, absolute",
+            "err_of": "the forms' outputs, absolute",
             "ms": gnorm["ms"],
             "plain_ms": gnorm["plain_ms"],
+            "unfused_ms": gnorm["unfused_ms"],
             "bound_ms": gnorm["bound_ms"],
             "bound_by": "bytes",
+            "bound_gb": gnorm["gb"],
             "library_ms": gnorm["library_ms"],
-            "arith": "fp32 sums a thread, fp64 across; fp32 fma",
+            "arith": "fp32 sums a thread, fp64 across; fp32 fma, expm1f",
             "bound_flops_per_s": F32_FLOPS,
-            "at": "one 64-clip encodec-48k chunk: the 18 norms",
+            "at": "one 64-clip encodec-48k chunk: the 14 applies (18 norms) of a forward",
             "shapes": gnorm["rows"],
             "bf16": gnorm["bf16"],
             "ptxas": gnorm["ptxas"],

@@ -12,17 +12,38 @@ Port of frechet_audio_distance_exported_tpu/models/encodec.py (L54-311):
 The two variants: 24 kHz is mono and causal (weight norm folded into the
 weights); 48 kHz is stereo, centred, with GroupNorm(1, C) after every conv
 (JAX models/common.group_norm_full L100-129; GroupNorm1, an nn.GroupNorm
-whose forward is ops/group_norm.py: csrc/group_norm.cu's kernel pair on the
-card).
+that holds its weight and bias).
+
+At 48 kHz each norm is ops/group_norm.py's: on the card csrc/group_norm.cu's
+kernel pair, whose moments add the conv's bias as they read (cuDNN runs
+without it) and whose apply writes what the next conv reads, in the form
+that the module structure gives:
+- split: conv_in's norm and the strided convs' of stages 0-2 write the next
+  stage's input as it is (the shortcut's) and as conv1's padded ELU;
+- elu: conv1's norm writes its ELU, which conv2 (k=1, no pad) reads;
+- residual: conv2's and the shortcut's norms, after both moments, write
+  the padded ELU of their sum for the strided conv;
+- plain: stage 3's strided conv (the LSTM's input) and conv_out.
+Between two convs a tensor is then read by the moments and read and written
+by the apply: 112 GB a 64-clip chunk of float32, which bounds the pair. In
+float32 the result is ATen's chain (pad, conv with bias, the norm, ELU, +)
+to the bit. On the CPU the same ATen ops compose as they always have. Both
+variants run one topology (ResBlock, Stage): each SConv writes its output
+through the epilogue its consumer reads, and an SConv without a norm
+composes that epilogue of ATen's pad, ELU and + as the chain does. So the
+24 kHz encoder, which has no norm, runs that chain: with no norm's passes
+to fold them into, its pads, bias adds, ELUs and adds would need kernels
+of their own.
 
 Every conv reflect-pads by Encodec's math.ceil-based amounts first
 (_pad_amounts). The LSTM is nn.LSTM in float32 (cuDNN's on the card), which
 computes the same recurrence, gate order i, f, g, o.
 
 Mixed precision (JAX L232-260, pipeline.cast_model): in a bf16 model the
-input is cast to conv_in's dtype and each stage's input to its weights'
-dtype, so the convolution stages run in bf16 (GroupNorm at 48 kHz takes
-float64 moments inside and returns bf16), while the LSTM and conv_out keep
+input is cast to conv_in's dtype, which every stage's convs share (JAX
+casts each stage's input to its weights' dtype: the same), so the
+convolution stages run in bf16 (GroupNorm at 48 kHz takes float64 moments inside and rounds
+to bf16 where ATen's bf16 ops would), while the LSTM and conv_out keep
 float32 weights and the LSTM re-enters float32. FAD_TPU_LSTM_MATMUL=bfloat16
 (config.lstm_op_dtype, read at each forward) runs the recurrence as JAX
 _slstm(op_dtype=bfloat16) does (L100-183) instead of cuDNN's: layer 0's
@@ -41,6 +62,7 @@ Output: [B, T, 128] frame embeddings, T = ceil(S / 320)
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -72,9 +94,10 @@ def _pad_amounts(length: int, kernel: int, stride: int, causal: bool):
 
 
 class GroupNorm1(nn.GroupNorm):
-    """nn.GroupNorm(1, C), with its weight and bias, whose forward is
-    ops.group_norm: the hand-written kernel pair on the card, its plain
-    version on the CPU."""
+    """nn.GroupNorm(1, C), with its weight and bias. The encoder hands them
+    to ops/group_norm.py's forms with its conv's output (SConv.convolve);
+    the module's own forward, called alone, is ops.group_norm: the
+    hand-written kernel pair on the card, its plain version on the CPU."""
 
     def __init__(self, num_channels: int, eps: float = 1e-5):
         super().__init__(1, num_channels, eps=eps)
@@ -85,7 +108,11 @@ class GroupNorm1(nn.GroupNorm):
 
 class SConv(nn.Module):
     """Reflect pad, conv, then GroupNorm(1, C) where the variant has it (JAX
-    _sconv L65-73)."""
+    _sconv L65-73). Called alone it runs all three. Inside the encoder the
+    conv before it writes its input already padded, and one of its
+    epilogues (plain, elu_pad, split, residual) writes convolve()'s output
+    as the conv after it reads it: where it has a norm, in one apply of
+    ops/group_norm.py's pair; without one, with ATen's ops."""
 
     def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1,
                  causal: bool = True, group_norm: bool = False):
@@ -94,14 +121,56 @@ class SConv(nn.Module):
         self.gn = GroupNorm1(cout) if group_norm else None
         self.causal = causal
 
+    def pad_amounts(self, length: int) -> tuple:
+        """(left, right): the reflect pad of an input of length samples."""
+        return _pad_amounts(length, self.conv.kernel_size[0], self.conv.stride[0], self.causal)
+
+    def pad(self, x: torch.Tensor) -> torch.Tensor:
+        left, right = self.pad_amounts(x.shape[-1])
+        return F.pad(x, (left, right), mode="reflect") if left or right else x
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        left, right = _pad_amounts(
-            x.shape[-1], self.conv.kernel_size[0], self.conv.stride[0], self.causal
-        )
-        if left or right:
-            x = F.pad(x, (left, right), mode="reflect")
-        y = self.conv(x)
-        return y if self.gn is None else self.gn(y)
+        return self.plain(self.convolve(self.pad(x)))
+
+    def convolve(self, x):
+        """The conv of x, already padded, as the epilogues take it: without
+        a norm the conv's output; with one the norm's input, a
+        group_norm_ops.Norm. On the card cuDNN then runs without the bias,
+        which the norm's kernels add as they read (ATen would add it in a
+        pass of its own, rounding the same); on the CPU the conv adds it, as
+        it always has."""
+        if self.gn is None:
+            return self.conv(x)
+        if x.is_cuda:
+            y, conv_bias = F.conv1d(x, self.conv.weight, None, self.conv.stride), self.conv.bias
+        else:
+            y, conv_bias = self.conv(x), None
+        return group_norm_ops.Norm(y, conv_bias, self.gn.weight, self.gn.bias, self.gn.eps)
+
+    def plain(self, out) -> torch.Tensor:
+        """The output itself: what the LSTM and the encoder's output take."""
+        return out if self.gn is None else group_norm_ops.plain(out)
+
+    def elu_pad(self, out, after: "SConv") -> torch.Tensor:
+        """after.pad(elu(output)): what a conv after an ELU reads."""
+        if self.gn is None:
+            return after.pad(F.elu(out))
+        return group_norm_ops.elu_pad(out, *after.pad_amounts(out.y.shape[-1]))
+
+    def split(self, out, after: "SConv") -> list:
+        """[output, after.pad(elu(output))]: a stage's input, as its
+        shortcut and its conv1 (after) read it."""
+        if self.gn is None:
+            return [out, after.pad(F.elu(out))]
+        return list(group_norm_ops.split(out, *after.pad_amounts(out.y.shape[-1])))
+
+    def residual(self, out, other, after: "SConv") -> torch.Tensor:
+        """after.pad(elu(output + other)), other being convolve()'s output of
+        an SConv of the same variant (the shortcut's, each norm with its own
+        moments and affine)."""
+        if self.gn is None:
+            return after.pad(F.elu(out + other))
+        return group_norm_ops.residual(out, other, *after.pad_amounts(out.y.shape[-1]))
 
 
 class ResBlock(nn.Module):
@@ -113,9 +182,23 @@ class ResBlock(nn.Module):
         self.conv2 = SConv(dim // 2, dim, 1, causal=causal, group_norm=group_norm)
         self.shortcut = SConv(dim, dim, 1, causal=causal, group_norm=group_norm)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.conv2(F.elu(self.conv1(F.elu(x))))
-        return self.shortcut(x) + h
+    def forward(self, held: list, after: SConv) -> torch.Tensor:
+        """The block's sum, ELU'd and padded for the conv after it (the
+        stage's strided conv). held is [x, conv1.pad(elu(x))], as the conv
+        before the block wrote them. The block empties it and drops each
+        tensor once its last reader has run, so that at most three of a
+        stage's largest are alive at once."""
+        x, act = held
+        held.clear()
+        out = self.conv1.convolve(act)
+        del act
+        h = self.conv1.elu_pad(out, self.conv2)
+        del out
+        branch = self.conv2.convolve(h)
+        del h
+        shortcut = self.shortcut.convolve(x)
+        del x
+        return self.conv2.residual(branch, shortcut, after)
 
 
 class Stage(nn.Module):
@@ -126,8 +209,14 @@ class Stage(nn.Module):
         self.res = ResBlock(dim, causal, group_norm)
         self.down = SConv(dim, 2 * dim, 2 * ratio, ratio, causal=causal, group_norm=group_norm)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.down(F.elu(self.res(x)))
+    def forward(self, held: list, after: Optional[SConv]):
+        """The stage on held (ResBlock's, which it empties): the strided
+        conv's output split for the next stage's conv1 (after), or, where
+        no stage follows (after None), the output itself."""
+        h = self.res(held, self.down)
+        out = self.down.convolve(h)
+        del h
+        return self.down.plain(out) if after is None else self.down.split(out, after)
 
 
 def _bf16_round(t: torch.Tensor) -> torch.Tensor:
@@ -239,10 +328,13 @@ class Encodec(nn.Module):
             raise ValueError(f"expected a [B, {self.channels}, S] waveform, got {tuple(x.shape)}")
         if x.dtype == torch.int16:
             x = x.to(torch.float32) / 32768.0  # JAX L232-233: not CLAP's 32767
-        h = self.conv_in(x.to(self.conv_in.conv.weight.dtype))
-        for stage in self.stages:
-            # Each stage runs in its weights' dtype (JAX L250-254).
-            h = stage(h.to(stage.res.conv1.conv.weight.dtype))
+        # The stages run in conv_in's dtype: cast_model gives every conv of
+        # them one dtype, and cuDNN refuses weights of another.
+        h = x.to(self.conv_in.conv.weight.dtype)
+        conv1s = [stage.res.conv1 for stage in self.stages]
+        h = self.conv_in.split(self.conv_in.convolve(self.conv_in.pad(h)), conv1s[0])
+        for stage, after in zip(self.stages, conv1s[1:] + [None]):
+            h = stage(h, after)
         h = self.conv_out(F.elu(self.lstm(h)))  # the LSTM returns float32
         return h.transpose(1, 2)  # [B, T, 128]
 

@@ -213,22 +213,49 @@ def load_library() -> ctypes.CDLL:
         entry.argtypes = argtypes
         entry.restype = ctypes.c_int
     # csrc/group_norm.cu
-    lib.group_norm_launch.argtypes = [
-        ctypes.c_void_p,  # x [B, C, T]
-        ctypes.c_void_p,  # gamma [C]
-        ctypes.c_void_p,  # beta [C]
-        ctypes.c_void_p,  # partial [B, splits, 2] float64 scratch
-        ctypes.c_void_p,  # out
+    geometry = [
         ctypes.c_int,  # batch
         ctypes.c_longlong,  # n = C * T
         ctypes.c_int,  # T
+        ctypes.c_uint,  # mul and
+        ctypes.c_int,  # shift of the division by T
         ctypes.c_longlong,  # chunk
         ctypes.c_int,  # splits
-        ctypes.c_double,  # eps
+        ctypes.c_int,  # width: channels a slice spans at most
+    ]
+    tail = [
         ctypes.c_int,  # bf16
         ctypes.c_void_p,  # cudaStream_t
     ]
-    lib.group_norm_launch.restype = ctypes.c_int
-    lib.group_norm_blocks_per_sm.argtypes = [ctypes.c_int]  # bf16
+    lib.group_norm_moments_launch.argtypes = [
+        ctypes.c_void_p,  # y [B, C, T]
+        ctypes.c_void_p,  # conv_bias [C] or null
+        ctypes.c_void_p,  # partial [B, splits, 2] float64 scratch
+        *geometry,
+        *tail,
+    ]
+    lib.group_norm_moments_launch.restype = ctypes.c_int
+    norm = [
+        ctypes.c_void_p,  # y [B, C, T]
+        ctypes.c_void_p,  # conv_bias [C] or null
+        ctypes.c_void_p,  # gamma [C]
+        ctypes.c_void_p,  # beta [C]
+        ctypes.c_void_p,  # partial, as the moments filled it
+        ctypes.c_double,  # eps
+    ]
+    lib.group_norm_apply_launch.argtypes = [
+        ctypes.c_int,  # form
+        *norm,
+        *norm,  # the residual's second norm
+        ctypes.c_void_p,  # raw out [B, C, T] or null
+        ctypes.c_void_p,  # act out [B, C, left + T + right] or null
+        ctypes.c_int,  # left
+        ctypes.c_int,  # right
+        *geometry,  # the apply's own grid
+        ctypes.c_int,  # parts: the moments' splits, partials a row
+        *tail,
+    ]
+    lib.group_norm_apply_launch.restype = ctypes.c_int
+    lib.group_norm_blocks_per_sm.argtypes = [ctypes.c_int, ctypes.c_int]  # bf16, kernel
     lib.group_norm_blocks_per_sm.restype = ctypes.c_int
     return lib

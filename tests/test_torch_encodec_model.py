@@ -24,6 +24,7 @@ torch.set_num_threads(2)
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
 
 from frechet_audio_distance_exported_tpu.models import common as jcommon  # noqa: E402
 from frechet_audio_distance_exported_tpu.models import encodec as jenc  # noqa: E402
@@ -159,13 +160,23 @@ def test_group_norm_moments_agree_far_below_the_bound():
 
 
 def test_res_block_matches_jax(variant):
+    """The residual block as its stage runs it (the stage's input, and
+    conv1's padded ELU of it, in; the strided conv's output, and the next
+    conv1's padded ELU of it, out) against JAX's _res_block, ELU and the
+    strided _sconv."""
     sr, tree, model = variant
     stage = 1  # dim 64
+    ratio = encodec.RATIOS[stage]
     x = noise((2, 1203, 64), 7, 1.0)
-    ref = np.asarray(jenc._res_block(tree["stages"][stage]["res"], jnp.asarray(x), causal(sr)))
+    h = jax.nn.elu(jenc._res_block(tree["stages"][stage]["res"], jnp.asarray(x), causal(sr)))
+    ref = np.asarray(jenc._sconv(tree["stages"][stage]["down"], h, 2 * ratio, ratio, causal(sr)))
+    block, after = model.stages[stage], model.stages[stage + 1].res.conv1
     with torch.inference_mode():
-        ours = model.stages[stage].res(torch.from_numpy(x.transpose(0, 2, 1).copy()))
+        x = torch.from_numpy(x.transpose(0, 2, 1).copy())
+        ours, act = block([x, block.res.conv1.pad(F.elu(x))], after)
+        ref_act = after.pad(F.elu(torch.from_numpy(ref.transpose(0, 2, 1).copy())))
     np.testing.assert_allclose(ours.numpy().transpose(0, 2, 1), ref, rtol=0, atol=ATOL)
+    np.testing.assert_allclose(act.numpy(), ref_act.numpy(), rtol=0, atol=ATOL)
 
 
 @pytest.mark.parametrize("t", [1, 150])

@@ -12,11 +12,20 @@ float64 besides. Also on the CPU: a float32 model of the kernels' sums (the
 shift is what keeps the variance), the grid the wrapper picks, and the
 wrapper's refusals.
 
+The four forms of the apply (plain, elu, split, residual: the norm with the
+convolution's bias added first and ELU, the residual sum and the reflect
+pad after) are held to ATen's composition of the same steps bit for bit,
+on the CPU at every norm shape (T cut to a hundredth) and on the card at
+every norm shape of a 48 kHz chunk; the multiply and shift that stand for a
+division by T, to floor division.
+
 The kernels run only on the card (the `cuda` cases, which skip without
 one): kernel against plain at every norm shape at B = 8 and once at a whole
 64-clip chunk's largest, bf16 in bf16 ulps, bit-identical launches, the
-launch count, and a full 48 kHz Encodec forward against the same model on
-ATen's nn.GroupNorm.
+launch count, each form against the composition (bf16 within one ulp), the
+residual form with two affines at odd T and pads of 1 to 4, and a full
+48 kHz Encodec forward against the same model's chain on ATen's
+nn.GroupNorm.
 """
 
 import numpy as np
@@ -199,13 +208,17 @@ def test_the_grid_covers_every_row_and_fills_the_card(batch, channels, t, dtype)
             assert splits * batch >= resident
 
 
-def test_every_norm_of_the_48k_forward_is_listed():
+def test_every_norm_of_the_48k_forward_is_listed(monkeypatch):
     """group_norm_shapes against the shapes the model's 18 GroupNorms see."""
     seen = []
+    reference = gn.group_norm_reference
+
+    def record(x, *args):
+        seen.append(tuple(x.shape))
+        return reference(x, *args)
+
+    monkeypatch.setattr(gn, "group_norm_reference", record)
     model = encodec.encodec_for_rate(48000).eval()
-    for module in model.modules():
-        if isinstance(module, encodec.GroupNorm1):
-            module.register_forward_hook(lambda m, args, out: seen.append(tuple(args[0].shape)))
     with torch.inference_mode():
         model(torch.zeros((1, 2, 3200)))
     assert seen == [(1, c, t) for c, t in encodec.group_norm_shapes(3200)]
@@ -228,10 +241,24 @@ def test_sconv_keeps_group_norm_keys_and_uses_the_op():
 
 
 @pytest.mark.parametrize("case", ["non_contiguous", "rank2", "rank4", "float64", "int16",
-                                  "weight_dtype", "weight_shape", "bias_shape"])
+                                  "weight_dtype", "weight_shape", "bias_shape", "conv_bias_dtype",
+                                  "conv_bias_shape", "pad_of_t", "padded_plain", "negative_pad",
+                                  "residual_shapes"])
 def test_wrapper_refuses(case):
     x, gamma, beta = inputs(2, 8, 64, seed=4)
     error = ValueError
+    norm = gn.Norm(x, beta.clone(), gamma, beta, EPS)
+    form = {"conv_bias_dtype": lambda: gn.plain(norm._replace(conv_bias=beta.double())),
+            "conv_bias_shape": lambda: gn.split(norm._replace(conv_bias=beta[:-1]), 1, 1),
+            "pad_of_t": lambda: gn.elu_pad(norm, 64, 0),
+            "padded_plain": lambda: gn._epilogue("plain", (norm,), 1, 1),
+            "negative_pad": lambda: gn.split(norm, -1, 1),
+            "residual_shapes": lambda: gn.residual(norm, norm._replace(y=x[:1].contiguous()),
+                                                    1, 1)}
+    if case in form:
+        with pytest.raises(TypeError if case == "conv_bias_dtype" else ValueError):
+            form[case]()
+        return
     if case == "non_contiguous":
         x = x.transpose(1, 2).contiguous().transpose(1, 2)
     elif case == "rank2":
@@ -256,6 +283,81 @@ def test_empty_input_gives_an_empty_output():
     x, gamma, beta = inputs(1, 4, 8, seed=5)
     assert gn.group_norm(x[:0], gamma, beta, EPS).shape == (0, 4, 8)
     assert gn.group_norm(x[:, :, :0].contiguous(), gamma, beta, EPS).shape == (1, 4, 0)
+
+
+@pytest.mark.parametrize("t", [1, 2, 3, 5, 7, 10, 15, 1000, 1500, 1501, 12000, 60000, 240000,
+                               480000, 480006, 2**20, 2**31 - 1])
+def test_divisor_is_floor_division(t):
+    """The kernels' channel of a row element, (e * mul) >> shift, is e // t
+    for every e below 2**31, with mul in 32 bits: checked at the multiples
+    of t and their neighbours up to the largest row, and at random e."""
+    mul, shift = gn.divisor(t)
+    assert 0 < mul < 2**32
+    top = gn.MAX_ROW
+    rng = np.random.default_rng(t)
+    edges = np.arange(0, top, t, dtype=np.int64)[: 1 << 16]
+    e = np.concatenate([edges, edges + 1, edges - 1, edges + t - 1,
+                        np.arange(top - 4096, top + 1, dtype=np.int64),
+                        rng.integers(0, top + 1, 1 << 16)])
+    e = np.unique(e[(e >= 0) & (e <= top)]).astype(np.uint64)
+    # e * mul < 2**31 * 2**32: exact in 64 bits.
+    assert np.array_equal((e * np.uint64(mul)) >> np.uint64(shift), e // np.uint64(t))
+
+
+def composed(form, norms, left, right):
+    """ATen's chain that each form folds into the apply: the convolution's
+    bias added as ATen's add_ adds it, the norm alone (group_norm), then the
+    residual sum, F.elu and F.pad as the form has them."""
+    g = [gn.group_norm(n.y + n.conv_bias[:, None], n.weight, n.bias, n.eps) for n in norms]
+    if form == "plain":
+        return g[0]
+    act = F.elu(g[0] + g[1] if form == "residual" else g[0])
+    if left or right:
+        act = F.pad(act, (left, right), mode="reflect")
+    return (g[0], act) if form == "split" else act
+
+
+def fused(form, norms, left, right):
+    if form == "plain":
+        return gn.plain(norms[0])
+    if form == "elu":
+        return gn.elu_pad(norms[0], left, right)
+    if form == "split":
+        return gn.split(norms[0], left, right)
+    return gn.residual(norms[0], norms[1], left, right)
+
+
+# The pads each form takes in the 48 kHz encoder (conv2 k=1; conv1 k=3; a
+# strided conv, here stage 2's k=10, s=5).
+FORM_PADS = {"plain": (0, 0), "elu": (0, 0), "split": (1, 1), "residual": (3, 2)}
+
+
+def form_norms(form, batch, channels, t, seed, dtype=torch.float32, device="cpu"):
+    """One norm (two for the residual, each with its own input, conv bias and
+    affine) on inputs() with a conv bias drawn beside."""
+    out = []
+    for k in range(2 if form == "residual" else 1):
+        y, gamma, beta = inputs(batch, channels, t, seed + 1000 * k, dtype=dtype, device=device)
+        gen = torch.Generator(device=device).manual_seed(seed + 1000 * k + 1)
+        conv_bias = (0.5 * torch.randn(channels, generator=gen, device=device)).to(dtype)
+        out.append(gn.Norm(y, conv_bias, gamma, beta, EPS))
+    return out
+
+
+def same_outputs(got, want):
+    got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+    return len(got) == len(want) and all(
+        a.shape == b.shape and a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("form", gn.FORMS)
+@pytest.mark.parametrize("channels,t", SHORT, ids=[f"{c}x{t}" for c, t in SHORT])
+def test_plain_forms_are_the_aten_composition(form, channels, t):
+    norms = form_norms(form, 2, channels, t, seed=channels + t)
+    before = launches.read()
+    out = fused(form, norms, *FORM_PADS[form])
+    assert launches.read() == before  # the plain version counts no launch
+    assert same_outputs(out, composed(form, norms, *FORM_PADS[form]))
 
 
 @pytest.fixture
@@ -304,15 +406,16 @@ def test_bf16_kernel_within_one_ulp_of_plain(cuda_device, channels, t):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_two_launches_give_the_same_bits_and_count_once(cuda_device, dtype):
     x, gamma, beta = card_case(8, *NORMS[4], seed=8, dtype=dtype)
-    key = "group_norm" if dtype == torch.float32 else "group_norm[bf16]"
+    suffix = "" if dtype == torch.float32 else "[bf16]"
+    keys = ("group_norm" + suffix, "group_norm_apply.plain" + suffix)
     before = launches.read()
     first = gn.group_norm(x, gamma, beta, EPS)
     second = gn.group_norm(x, gamma, beta, EPS)
     after = launches.read()
     assert torch.equal(first, second)
-    assert after[key] == before[key] + 2
-    assert {k: v for k, v in after.items() if k != key} == {
-        k: v for k, v in before.items() if k != key}
+    assert all(after[key] == before[key] + 2 for key in keys)
+    assert {k: v for k, v in after.items() if k not in keys} == {
+        k: v for k, v in before.items() if k not in keys}
 
 
 @pytest.mark.cuda
@@ -325,11 +428,51 @@ def test_wrapper_refuses_a_misaligned_card_tensor(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("form", gn.FORMS)
+@pytest.mark.parametrize("channels,t", NORMS, ids=[f"{c}x{t}" for c, t in NORMS])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_fused_forms_are_the_composition_on_the_card(cuda_device, form, channels, t, dtype):
+    """Each form at each norm shape of a 48 kHz chunk (B = 4): float32 the
+    composition's bits, bf16 within one bf16 ulp of it."""
+    norms = form_norms(form, 4, channels, t, seed=channels + t, dtype=dtype, device="cuda")
+    got = fused(form, norms, *FORM_PADS[form])
+    want = composed(form, norms, *FORM_PADS[form])
+    if dtype == torch.float32:
+        assert same_outputs(got, want)
+        return
+    got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype == torch.bfloat16
+        both = torch.maximum(a.float().abs(), b.float().abs())
+        assert bool(((a.float() - b.float()).abs() <= bf16_ulp(both)).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("left,right", [(1, 1), (2, 2), (3, 2), (4, 4), (1, 4), (4, 1)])
+@pytest.mark.parametrize("channels,t", [(64, 1001), (5, 997), (128, 37), (3, 5)],
+                         ids=["64x1001", "5x997", "128x37", "3x5"])
+def test_residual_with_two_affines_odd_t_and_every_pad(cuda_device, channels, t, left, right):
+    """The residual form of two norms with their own conv biases and
+    affines, at odd T (rows whose channels start anywhere in a 16-byte
+    vector) and pads of 1 to 4 (the padded interior misaligned every way):
+    the composition's bits, and the same bits from a second launch; the
+    elu and split forms at the same pads."""
+    norms = form_norms("residual", 3, channels, t, seed=t + left, device="cuda")
+    first = gn.residual(norms[0], norms[1], left, right)
+    assert same_outputs(first, composed("residual", norms, left, right))
+    assert torch.equal(first, gn.residual(norms[0], norms[1], left, right))
+    for form in ("elu", "split"):
+        assert same_outputs(fused(form, norms[:1], left, right),
+                            composed(form, norms[:1], left, right))
+
+
+@pytest.mark.cuda
 def test_encodec48k_forward_matches_aten_group_norm(cuda_device, monkeypatch):
     """A 48 kHz forward of 8 clips of 10 s through the kernels against the
-    same model with ATen's nn.GroupNorm, within the bar that
+    same model's chain with ATen's nn.GroupNorm, within the bar that
     test_torch_encodec48k_reference.py holds the port to the plain reference."""
     from test_torch_encodec48k_reference import BAR, clips, random_state
+    from test_torch_encodec_norm_forms import chain_forward
 
     model = encodec.Encodec(channels=2, causal=False).eval()
     model.load_state_dict(random_state())
@@ -340,8 +483,8 @@ def test_encodec48k_forward_matches_aten_group_norm(cuda_device, monkeypatch):
         before = launches.read()["group_norm"]
         ours = model(x)
         assert launches.read()["group_norm"] == before + 18
-        monkeypatch.setattr(encodec.GroupNorm1, "forward", torch.nn.GroupNorm.forward)
-        aten = model(x)
+        aten = chain_forward(model, x, lambda y, norm: F.group_norm(
+            y, 1, norm.weight, norm.bias, norm.eps))
     err = ((ours - aten).abs().max() / aten.abs().max()).item()
     assert ours.shape == (8, 1500, 128)
     assert err < BAR, err
