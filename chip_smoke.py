@@ -27,7 +27,12 @@ launches bit for bit, and timed beside that chain (what the forward ran
 before the fold), the chain on ATen's nn.GroupNorm (the yardstick,
 library_ms), the plain version and its bound (each norm read by the
 moments and the apply, and the form's writes); bf16 at every apply within
-one ulp of the chain; and its ptxas lines (no spill). Then it
+one ulp of the chain; and its ptxas lines (no spill). The general product
+gemm_tf32 (the float32 Swin kernels' token-tile GEMM) runs the five products
+of a WavLM-Large forward over a 64-clip chunk (M = 31,936: LN on load at
+K = 512 and 1024, N = 3200 for qkv with the gate, the residual, GELU on load
+at K = 4096), each held to its plain version (WAVLM_GEMM_ATOL, which the
+same product in 1xTF32 must miss) and timed beside it and its bound. Then it
 drives the ported paths through the public API,
 FrechetAudioDistance(weights="random", device="cuda"):
 - VGGish: scores two 16 kHz WAV corpora and checks the results;
@@ -44,7 +49,9 @@ FrechetAudioDistance(weights="random", device="cuda"):
   encodec-48k with channels=1 on the 16 kHz part (mono duplicated to two
   channels, each resampled). Each holds card embeddings against the CPU's,
   scores 4 clips a side on both, and compares the LSTM module alone on the
-  card and the CPU at 750 and 1500 steps: cuDNN must not run it in TF32.
+  card and the CPU at 750 and 1500 steps: cuDNN must not run it in TF32;
+- WavLM: one forward of wavlm-large over a 64-clip chunk of 10 s clips,
+  timed, then the 16 kHz part scored.
 The CLAP pair, the pann-32k pair, a VGGish pair (8 clips a side) and the
 Encodec pairs are also scored on the CPU plain path: the card's FAD must
 agree within 1e-3, absolute and relative.
@@ -117,7 +124,8 @@ PANN launch only their own log-mel kernel; CLAP launches the PANN log-mel
 kernel once per chunk, swin_block_fused exactly 10 times as often and
 window_attention_fused 2 times; encodec-24k launches none, encodec-48k
 group_norm 18 times a forward, its applies 4 split, 4 elu, 4 residual and
-2 plain, and nothing else. The
+2 plain, and nothing else; wavlm-large launches wavlm_gemm 97 times and
+wavlm_attention 24 times a forward, and nothing else. The
 `kernels` line gives each kernel's count on its main path (vggish,
 pann-16k, clap; the bf16 Swin kernels: step 10's bf16 CLAP run) and the
 PANN kernel's count on every path that runs it under "launches_by_path".
@@ -198,6 +206,12 @@ ENCODEC_SMALL_CLIPS = 4  # per side, for the CPU plain path's score
 ENCODEC_MASKED_SECONDS = 4.0  # padded to 10 s; frames past 4 s are masked
 ENCODEC_LONG_SECONDS = 12.0  # past Encodec's 10 s: the batch skips it
 LSTM_STEPS = (750, 1500)  # the LSTM's steps on a 10 s clip at 24 and 48 kHz
+WAVLM_CLIPS = 64  # a WavLM-Large chunk: 64 clips of 10 s at 16 kHz, 31,936 rows of 1024
+WAVLM_SAMPLES = 160000
+# gemm_tf32 (3xTF32) vs its plain float32 version, TF32 off, on outputs of
+# order 1: only the sum order and the split's last bits differ. A 1xTF32
+# product (the plain version with TF32 on) misses it at every product.
+WAVLM_GEMM_ATOL = 1e-4
 MESH_RTOL = 1e-3  # mesh scores vs the single-process card scores; the score step vs float64
 CLI_RTOL = 1e-6  # the one-rank CLI's device_stats score vs the single-process one
 VGGISH_SCALE = 300.0  # random-weight VGGish rows are about 1e-3: x300 gives an O(1) FAD
@@ -687,6 +701,157 @@ def swin_kernel_phase(torch, np, window_attn, clap, batch: int, dtype=None) -> d
         row["tflops"] = row["flops"] / row["ms"] / 1e9
         row["bound_by"] = bound(row.pop("flops"), row.pop("bytes"), rate)[1]
     return summary
+
+
+def wavlm_products(cfg, rows: int) -> list:
+    """(name, M, K, N, what is applied on load, launches a forward) of each
+    product of a WavLM forward over ``rows`` rows: the feature projection,
+    then each layer's qkv with the gate's columns, proj and fc1 and fc2."""
+    c, f = cfg.hidden, cfg.intermediate
+    return [("projection", rows, cfg.conv_dim[-1], c, "ln", 1),
+            ("qkvg", rows, c, 3 * c + cfg.heads * cfg.gate_dim, "ln", cfg.layers),
+            ("proj", rows, c, c, "plain", cfg.layers),
+            ("fc1", rows, c, f, "ln", cfg.layers),
+            ("fc2", rows, f, c, "gelu", cfg.layers)]
+
+
+def wavlm_gemm_phase(torch, window_attn, launches, wavlm) -> dict:
+    """gemm_tf32 against its plain version (gemm_tf32_reference, float32 with
+    TF32 off) at each product of one WavLM-Large forward over a 64-clip chunk
+    (wavlm_products at M = 31,936): LN on load at K = 512 and 1024 (N = 3200
+    for qkv with the gate), the residual at K = 1024, GELU on load and the
+    residual at K = 4096. Inputs: a ~ N(0, 1), w ~ N(0, 1/K), bias ~ N(0,
+    0.01), gamma ~ 1 + N(0, 0.04), beta ~ N(0, 0.01), the residual ~ N(0, 1).
+    Each must stay within WAVLM_GEMM_ATOL, the same product in 1xTF32 (the
+    plain version with TF32 on) must miss it, and two calls must give the
+    same bits and count two ``wavlm_gemm``. Per product and per chunk (each
+    product times its launches a forward): the time beside the plain
+    version's, the device time and the weights' split in it, and the bound:
+    2 M K N flops as the kernel runs them at the 3xTF32 rate, against a, w,
+    the bias, gamma and beta, the residual and out once as bytes."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    rows = WAVLM_CLIPS * wavlm.num_frames(WAVLM_SAMPLES)
+
+    def normal(shape, scale=1.0, offset=0.0):
+        return offset + scale * torch.randn(shape, generator=gen, device=dev)
+
+    summary = {"max_abs_err": 0.0, "tf32_min_err": math.inf, "ms": 0.0, "plain_ms": 0.0,
+               "bound_ms": 0.0, "device_ms": 0.0, "split_ms": 0.0, "flops": 0.0,
+               "bytes": 0.0, "shapes": []}
+    for name, m, k, n, form, per_forward in wavlm_products(wavlm.WAVLM_LARGE, rows):
+        a, w, bias = normal((m, k)), normal((k, n), k ** -0.5), normal((n,), 0.1)
+        kwargs = ({"ln": (normal((k,), 0.2, 1.0), normal((k,), 0.1))} if form == "ln"
+                  else {"residual": normal((m, n)), "gelu": form == "gelu"})
+        call = lambda: window_attn.gemm_tf32(a, w, bias, key="wavlm_gemm", **kwargs)  # noqa: E731
+        plain = lambda: window_attn.gemm_tf32_reference(a, w, bias, **kwargs)  # noqa: E731
+        label = f"gemm_tf32 {name} (M {m}, K {k}, N {n}, {form} on load)"
+        launches.zero()
+        out, again = call(), call()
+        check(launches.read()["wavlm_gemm"] == 2,
+              f"{label}: two calls counted {launches.read()['wavlm_gemm']} wavlm_gemm")
+        ref = plain()
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            tf32 = plain()
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(out).all()), f"{label}: output not finite")
+        check(torch.equal(out, again), f"{label}: two calls differ")
+        err = float((out - ref).abs().max())
+        tf32_err = float((tf32 - ref).abs().max())
+        del again, tf32
+        kern_ms, plain_ms, runs = timed_pair(torch, call, plain, iters=5)
+        dev_ms = device_ms(torch, call)
+        split_ms = device_ms(torch, call, "split_weights_kernel")
+        flops = 2 * m * k * n
+        nbytes = 4 * (m * k + k * n + n + m * n * (2 if form != "ln" else 1)
+                      + (2 * k if form == "ln" else 0))
+        bound_ms, bound_by = bound(flops, nbytes, TF32X3_FLOPS)
+        print(f"{label}: max_abs_err {err:.3e} (1xTF32 {tf32_err:.3e}), kernel "
+              f"{kern_ms:.4f} ms ({runs[1]:.4f}, {runs[2]:.4f}) plain {plain_ms:.4f} ms "
+              f"({runs[0]:.4f}, {runs[3]:.4f}) bound {bound_ms:.4f} ms ({bound_by} at "
+              f"{rate_name(TF32X3_FLOPS)}; {flops / 1e9:.2f} GFLOP, "
+              f"{flops / kern_ms / 1e9:.2f} TFLOP/s); device time {ms_text(dev_ms)}, of it the "
+              f"weights' split {ms_text(split_ms)}; {per_forward} per forward")
+        check(err <= WAVLM_GEMM_ATOL, f"{label} vs plain: {err} > {WAVLM_GEMM_ATOL}")
+        check(tf32_err > WAVLM_GEMM_ATOL,
+              f"{label}: 1xTF32 reads {tf32_err}, within {WAVLM_GEMM_ATOL}: the bar cannot tell "
+              "3xTF32 from TF32")
+        shape_row = {"product": name, "M": m, "K": k, "N": n, "on_load": form,
+                     "residual": form != "ln", "per_forward": per_forward, "ms": kern_ms,
+                     "plain_ms": plain_ms, "bound_ms": bound_ms, "device_ms": dev_ms,
+                     "split_ms": split_ms, "max_abs_err": err, "tf32_err": tf32_err}
+        summary["max_abs_err"] = max(summary["max_abs_err"], err)
+        summary["tf32_min_err"] = min(summary["tf32_min_err"], tf32_err)
+        for key in ("ms", "plain_ms", "bound_ms", "device_ms", "split_ms"):
+            if summary[key] is not None and shape_row[key] is not None:
+                summary[key] += per_forward * shape_row[key]
+            else:  # a trace without device time: not measured
+                summary[key] = None
+        summary["flops"] += per_forward * flops
+        summary["bytes"] += per_forward * nbytes
+        summary["shapes"].append(shape_row)
+        del a, w, bias, kwargs, out, ref
+    summary["tflops"] = summary["flops"] / summary["ms"] / 1e9
+    summary["bound_by"] = bound(summary.pop("flops"), summary.pop("bytes"), TF32X3_FLOPS)[1]
+    print(f"gemm_tf32 over a WavLM-Large chunk: {summary['ms']:.3f} ms ({summary['tflops']:.2f} "
+          f"TFLOP/s), plain {summary['plain_ms']:.3f} ms, bound {summary['bound_ms']:.3f} ms, "
+          f"of the device time {ms_text(summary['device_ms'])} the split "
+          f"{ms_text(summary['split_ms'])}")
+    return summary
+
+
+def wavlm_counts(cfg, forwards: int) -> dict:
+    """The launch counts of ``forwards`` float32 WavLM forwards on the card:
+    wavlm_gemm for the projection and each layer's four products, and
+    wavlm_attention for each layer's attention; nothing else."""
+    return {"wavlm_gemm": (1 + 4 * cfg.layers) * forwards,
+            "wavlm_attention": cfg.layers * forwards}
+
+
+def wavlm_forward_phase(torch, launches, wavlm, model) -> dict:
+    """One forward of the port's WavLM-Large (the calculator's model, seeded
+    random weights) over a 64-clip chunk of 10 s noise, every count zeroed
+    just before it: its counts must be wavlm_counts' for one forward, and its
+    rows finite, [64, 499, 1024]. Then its time (CUDA events, two forwards)
+    and its peak memory."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    wave = 0.1 * torch.randn((WAVLM_CLIPS, WAVLM_SAMPLES), generator=gen, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        launches.zero()
+        rows = model(wave)
+        torch.cuda.synchronize()
+        counts = launches.read()
+        want = (WAVLM_CLIPS, wavlm.num_frames(WAVLM_SAMPLES), model.cfg.hidden)
+        check(tuple(rows.shape) == want, f"wavlm-large forward rows {tuple(rows.shape)}")
+        check(bool(torch.isfinite(rows).all()), "wavlm-large forward rows not finite")
+        del rows
+        ms = cuda_ms(torch, lambda: model(wave), iters=2, warmup=0)
+    peak = torch.cuda.max_memory_allocated()
+    got = {k: v for k, v in counts.items() if v}
+    print(f"wavlm-large forward of {WAVLM_CLIPS} x 10 s clips: {ms:.3f} ms, peak "
+          f"{peak / 2**30:.3f} GiB, launches {got}")
+    check(got == wavlm_counts(model.cfg, 1), f"one wavlm-large forward launched {counts}")
+    return {"ms": ms, "peak_gib": peak / 2**30, "launches": got}
+
+
+def wavlm_path_phase(torch, launches, wavlm, fad, calls) -> tuple:
+    """Step 7b: wavlm_forward_phase on the calculator's model, then its
+    warm-up and ``calls`` through score(), every forward with one forward's
+    counts and nothing else. Returns (wavlm_forward_phase's numbers, the
+    wavlm_gemm count of the forward and of the scores)."""
+    forward = wavlm_forward_phase(torch, launches, wavlm, fad.model)
+    timed_warmup(torch, fad, "wavlm-large", fad.pipeline.file_batch)
+    forwards = counted_forwards(fad)
+    scores, counts = run_path(torch, fad, calls, launches, "wavlm_gemm", "wavlm-large")
+    check({k: v for k, v in counts.items() if v} == wavlm_counts(fad.model.cfg, len(forwards)),
+          f"the wavlm-large path launched {counts} in {len(forwards)} forwards")
+    check_pair_scores(scores, "wavlm-large")
+    return forward, {"forward": forward["launches"]["wavlm_gemm"],
+                     "wavlm-large score": counts["wavlm_gemm"]}
 
 
 def run_scores(torch, fad, calls, launches, kernel, label: str) -> dict:
@@ -2009,7 +2174,7 @@ def main() -> int:
     import frechet_audio_distance_exported_tpu_torch as port
     from frechet_audio_distance_exported_tpu_torch import FrechetAudioDistance
     from frechet_audio_distance_exported_tpu_torch.config import apply_precision
-    from frechet_audio_distance_exported_tpu_torch.models import clap, encodec
+    from frechet_audio_distance_exported_tpu_torch.models import clap, encodec, wavlm
     from frechet_audio_distance_exported_tpu_torch.ops import _build, cuda_frontend, cuda_pann_frontend
     from frechet_audio_distance_exported_tpu_torch.ops import frontends as fe
     from frechet_audio_distance_exported_tpu_torch.ops import group_norm as group_norm_ops
@@ -2047,6 +2212,7 @@ def main() -> int:
     swin_f32 = float32_swin_checks(torch, window_attn, clap, _build, batch)
     gnorm = group_norm_kernel_phase(torch, group_norm_ops, encodec,
                                     _build, FAMILIES["encodec"].file_batch["cuda"])
+    wavlm_gemm = wavlm_gemm_phase(torch, window_attn, launches, wavlm)
 
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
@@ -2185,6 +2351,17 @@ def main() -> int:
                     (2 * 48000 * int(CLIP_SECONDS) // 320, 128), "encodec-48k 16 kHz")
         del fad
 
+        # 7b. The WavLM path through the public API: one forward of a 64-clip
+        #     chunk launches wavlm_gemm 1 + 4 * 24 times and wavlm_attention
+        #     24 times and nothing else; then the 16 kHz part is scored, each
+        #     forward with the same counts.
+        fad = calculator("wavlm-large")
+        check(fad.pipeline.file_batch == FAMILIES["wavlm"].file_batch["cuda"],
+              "wavlm-large file_batch is not the CUDA default")
+        wavlm_forward, wavlm_launches = wavlm_path_phase(torch, launches, wavlm, fad,
+                                                         pair_calls(bg_small, ev_small))
+        del fad
+
         # 8. The mesh (parallel/), on this one card. NCCL between cards is
         #    not exercised: the machine has one.
         print("mesh: NCCL across two or more cards is not exercised here (the machine has "
@@ -2264,6 +2441,34 @@ def main() -> int:
         print(json.dumps({"numerics": numerics}))
 
     print(json.dumps({"kernels": [
+        {
+            "name": "wavlm_gemm",
+            "route": "cuda",
+            "source": "frechet_audio_distance_exported_tpu_torch/csrc/window_attn.cu",
+            "entry": "ops/window_attn.gemm_tf32",
+            "replaces": "none (the JAX package has no WavLM)",
+            "launches": wavlm_launches["forward"],
+            "launches_of": "one wavlm-large forward of a 64-clip chunk",
+            "launches_by_path": wavlm_launches,
+            "attention_launches": wavlm_forward["launches"]["wavlm_attention"],
+            "max_abs_err": wavlm_gemm["max_abs_err"],
+            "tf32_min_err": wavlm_gemm["tf32_min_err"],
+            "err_of": "product output, absolute; tf32: the same product in 1xTF32",
+            "ms": wavlm_gemm["ms"],
+            "plain_ms": wavlm_gemm["plain_ms"],
+            "bound_ms": wavlm_gemm["bound_ms"],
+            "bound_by": wavlm_gemm["bound_by"],
+            "tflops": wavlm_gemm["tflops"],
+            "device_ms": wavlm_gemm["device_ms"],
+            "split_ms": wavlm_gemm["split_ms"],
+            "forward_ms": wavlm_forward["ms"],
+            "forward_peak_gib": wavlm_forward["peak_gib"],
+            "library_ms": None,
+            "arith": "3xtf32 wgmma",
+            "bound_flops_per_s": TF32X3_FLOPS,
+            "at": "one 64-clip wavlm-large chunk (M = 31936): the 97 products of a forward",
+            "shapes": wavlm_gemm["shapes"],
+        },
         {
             "name": "group_norm",
             "route": "cuda",

@@ -69,6 +69,11 @@
 // and the hidden layer pass through device memory: at C = 96 about 2.4 GB a launch at B = 64
 // (0.7 ms at 3.35 TB/s, partly from L2), at C = 384 0.6 GB.
 //
+// The token-tile GEMM is also a general product (gemm_tf32_launch): out [m, n] = op(a) @ w + bias
+// (+ residual) over any m rows, in the three forms a pre-LN transformer layer needs, LN on load
+// with the bias (k <= MAX_LN_WIDTH), none with the residual, GELU on load with the residual;
+// WavLM's encoder (models/wavlm.py) runs its products on it.
+//
 // The wrapper (ops/window_attn.py) checks shapes, types, devices, contiguity and 16-byte
 // alignment, splits the weights (tf32_split) and allocates the output and the scratch; a CUDA
 // tensor reaches these kernels or the wrapper raises, and there is no fallback to the plain
@@ -103,7 +108,8 @@ constexpr int BM = 64 * CONSUMERS;    // rows of a tile: two windows
 constexpr int KS = 32;                // depth of a slab: one 128-byte swizzled row a value row
 constexpr int SMEM_LIMIT = 232448;    // bytes of shared memory a block may take
 constexpr int BARRIER_BYTES = 1024;   // the ring's mbarriers, ahead of the buffers
-constexpr int MAX_LN_WIDTH = 768;     // LayerNorm gamma and beta staged in shared memory
+constexpr int MAX_LN_WIDTH = 1024;    // LayerNorm gamma and beta staged in shared memory
+constexpr int MAX_SWIN_WIDTH = 768;   // the widest Swin stage the two launches take
 
 enum Epilogue { EPI_BIAS = 0, EPI_RESIDUAL = 1 };
 enum OnLoad { A_PLAIN = 0, A_LN = 1, A_GELU = 2 };  // what a GEMM applies to A as it reads it
@@ -571,7 +577,7 @@ int set_smem(Kernel kernel, int bytes) {
 
 int check_args(int bw, int c, int heads, int mask_count) {
   if (bw <= 0 || heads <= 0 || heads % HEADS_PER_BLOCK || c != heads * HD || mask_count <= 0 ||
-      c > MAX_LN_WIDTH) {
+      c > MAX_SWIN_WIDTH) {
     return (int)cudaErrorInvalidValue;
   }
   return 0;
@@ -695,6 +701,34 @@ int tf32_split_launch(const float* w, int k, int n, float* out, void* stream) {
   split_weights_kernel<<<dim3(n / 32, k / 32), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       w, out, k, n);
   return (int)cudaGetLastError();
+}
+
+// out [m, n] = op(a) @ w + bias (+ residual): with on_load 1 (A_LN) the LayerNorm statistics of
+// a's rows into stats [m] (mean, rstd) and the GEMM with LN on load (ln_g, ln_b [k], k <=
+// MAX_LN_WIDTH) and the bias; with on_load 0 (A_PLAIN) or 2 (A_GELU) the GEMM with the bias and
+// the residual [m, n]. No other form is taken. a [m, k] and residual row-major float32, w_split
+// the weight's tf32_split form [2, n, k]; k % 32 == 0, n % 96 == 0 or n % 128 == 0. Same
+// conventions as window_attention_launch.
+int gemm_tf32_launch(const float* a, const float* w_split, const float* bias,
+                     const float* residual, const float* ln_g, const float* ln_b, float* stats,
+                     float* out, int m, int n, int k, int on_load, void* stream) {
+  if (m <= 0 || n <= 0 || k <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (on_load == A_LN && residual == nullptr) {
+    float2* st = reinterpret_cast<float2*>(stats);
+    const int err = launch_stats(a, st, m, k, s);
+    if (err) return err;
+    return launch_gemm<EPI_BIAS, A_LN>(a, w_split, st, ln_g, ln_b, bias, nullptr, out, m, n, k, s);
+  }
+  if (on_load == A_PLAIN && residual != nullptr) {
+    return launch_gemm<EPI_RESIDUAL, A_PLAIN>(a, w_split, nullptr, nullptr, nullptr, bias,
+                                              residual, out, m, n, k, s);
+  }
+  if (on_load == A_GELU && residual != nullptr) {
+    return launch_gemm<EPI_RESIDUAL, A_GELU>(a, w_split, nullptr, nullptr, nullptr, bias,
+                                             residual, out, m, n, k, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 // x + proj(attn(LN1(x))) into out [bw, 64, c], in four launches: the LN1 statistics, the qkv

@@ -7,7 +7,8 @@ constructor kwargs (``mesh`` takes a parallel.mesh.DataMesh; plus
 calculate_embd_statistics / calculate_frechet_distance / _load_audio_files /
 warmup), the same -1 error sentinel and .npy embedding caches, for all
 seven model names: VGGish, PANN (pann-8k/16k/32k), Encodec (encodec-24k,
-encodec-48k) and CLAP.
+encodec-48k) and CLAP; and WavLM-Large (wavlm-large), which the JAX package
+does not run, on random weights only.
 """
 
 from __future__ import annotations
@@ -81,8 +82,8 @@ class FrechetAudioDistance:
             ckpt_dir: folder of weight bundles (.npz). Defaults to the JAX
                 package's cache dir (FAD_TPU_CKPT_DIR overrides).
             model_name: one of VALID_MODELS: 'vggish', 'pann-8k' /
-                'pann-16k' / 'pann-32k', 'encodec-24k' / 'encodec-48k' or
-                'clap'.
+                'pann-16k' / 'pann-32k', 'encodec-24k' / 'encodec-48k',
+                'clap' or 'wavlm-large' (weights='random' only).
             sample_rate: must equal the model default or be None.
             channels: number of channels (1 for mono). Files are mono-mixed
                 as they are loaded where their rank exceeds it, so
@@ -176,7 +177,8 @@ class FrechetAudioDistance:
     def get_embeddings(self, x: List[np.ndarray], sr: int) -> np.ndarray:
         """Embeddings for a list of audio arrays, concatenated over files
         (VGGish: one row per 0.96 s patch; Encodec: one row per 320 samples
-        at the model's rate; PANN and CLAP: one row per file)."""
+        at the model's rate; WavLM: one row per 20 ms frame; PANN and CLAP:
+        one row per file)."""
         return _concat_rows(self.pipeline.embed_files(x, sr, strict=False))
 
     def _get_embedding_for_audio(self, audio: np.ndarray) -> np.ndarray:

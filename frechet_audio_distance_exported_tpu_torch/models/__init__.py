@@ -5,7 +5,8 @@ with the same names and constants. Where the JAX package exports a forward
 function and a parameter initialiser per family (vggish_forward and
 init_vggish_params, ...), this package exports the nn.Module that holds
 both: VGGish, PANN, CLAP and Encodec, with encodec_for_rate for the 24 kHz
-(mono, causal) or 48 kHz (stereo, GroupNorm) encoder. Random weights come
+(mono, causal) or 48 kHz (stereo, GroupNorm) encoder, and WavLM, which the
+JAX package does not have. Random weights come
 from utils.weights.init_random_params, real ones from a bundle through
 FrechetAudioDistance.
 """
@@ -15,6 +16,7 @@ from .encodec import EMBEDDING_SIZE as ENCODEC_EMBEDDING_SIZE
 from .encodec import Encodec, encodec_for_rate
 from .pann import PANN, EMBEDDING_SIZE as PANN_EMBEDDING_SIZE
 from .vggish import VGGish, EMBEDDING_SIZE as VGGISH_EMBEDDING_SIZE
+from .wavlm import WavLM, EMBEDDING_SIZE as WAVLM_EMBEDDING_SIZE
 from ..ops.frontends import (
     CLAP_MAX_AUDIO_SECONDS,
     CLAP_MAX_SAMPLES,
@@ -42,6 +44,8 @@ __all__ = [
     "Encodec",
     "encodec_for_rate",
     "CLAP",
+    "WavLM",
+    "WAVLM_EMBEDDING_SIZE",
     "waveform_to_examples",
     "waveform_to_logmel",
     "PANN_CONFIGS",

@@ -149,6 +149,22 @@ def load_library() -> ctypes.CDLL:
         ctypes.c_void_p,  # cudaStream_t
     ]
     lib.tf32_split_launch.restype = ctypes.c_int
+    lib.gemm_tf32_launch.argtypes = [
+        ctypes.c_void_p,  # a [m, k]
+        ctypes.c_void_p,  # w: its tf32_split form [2, n, k]
+        ctypes.c_void_p,  # bias [n]
+        ctypes.c_void_p,  # residual [m, n] or NULL
+        ctypes.c_void_p,  # LayerNorm gamma [k] or NULL
+        ctypes.c_void_p,  # LayerNorm beta [k] or NULL
+        ctypes.c_void_p,  # stats scratch [m, 2] or NULL
+        ctypes.c_void_p,  # out [m, n]
+        ctypes.c_int,  # m
+        ctypes.c_int,  # n
+        ctypes.c_int,  # k
+        ctypes.c_int,  # on load: 0 none, 1 LayerNorm, 2 GELU
+        ctypes.c_void_p,  # cudaStream_t
+    ]
+    lib.gemm_tf32_launch.restype = ctypes.c_int
     attention_args = [
         ctypes.c_void_p,  # x
         ctypes.c_void_p,  # w_qkv (float32: its tf32_split form)

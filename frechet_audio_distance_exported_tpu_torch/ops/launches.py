@@ -7,7 +7,11 @@ else: a call that goes to the plain version does not count, and a wrapper
 whose kernel runs as several CUDA launches counts one per call. GroupNorm
 counts one ``group_norm`` a norm (its moments) and, where the apply writes
 a convolution's epilogue, one ``group_norm_apply.<form>`` an apply
-(ops/group_norm.py's FORMS). Harnesses
+(ops/group_norm.py's FORMS). window_attn.gemm_tf32, the general product,
+counts one under the key its caller passes: WavLM's products count
+``wavlm_gemm``. WavLM (models/wavlm.py) counts one ``wavlm_attention`` a
+layer's attention on the card (ATen's kernels; ``[bf16]`` in a bf16 model,
+whose products run in ATen and are not counted). Harnesses
 set every count to 0 with zero() and take them all with read().
 """
 
@@ -30,6 +34,9 @@ LAUNCHES = {
     "group_norm_apply.elu[bf16]": 0,
     "group_norm_apply.split[bf16]": 0,
     "group_norm_apply.residual[bf16]": 0,
+    "wavlm_gemm": 0,
+    "wavlm_attention": 0,
+    "wavlm_attention[bf16]": 0,
 }
 
 

@@ -31,6 +31,11 @@ K-major layout TF32 wgmma takes), once per weight a call: the weights are
 constants of the forward pass, and the kernels then stage them with no
 arithmetic.
 
+gemm_tf32 exposes the float32 kernels' token-tile GEMM as a general product
+over any number of rows, op(a) @ w + bias (+ residual) with op a LayerNorm
+or a GELU applied on load, in the three forms a pre-LN transformer layer
+takes (WavLM's encoder, models/wavlm.py); it has no bf16 instance.
+
 A call is float32 throughout, or bfloat16 throughout but for a float32
 mask: then the kernels compute what the Pallas kernels compute for a bf16
 x (_attention_half L35-83, _block_kernel L114-146). Products take bf16
@@ -174,6 +179,94 @@ def tf32_split(w: torch.Tensor) -> torch.Tensor:
         err = lib.tf32_split_launch(*_ptrs(w), k, n, *_ptrs(out), stream)
     if err != 0:
         raise RuntimeError(f"tf32_split kernel launch failed with cudaError {err}")
+    return out
+
+
+# The forms of the general product: what is applied to A as it is read, and
+# whether the residual is added (a pre-LN transformer layer's four products).
+GEMM_FORMS = {("ln", False), ("plain", True), ("gelu", True)}
+GEMM_ON_LOAD = {"plain": 0, "ln": 1, "gelu": 2}  # csrc/window_attn.cu's OnLoad
+# The widest LayerNorm the GEMM stages in shared memory (MAX_LN_WIDTH).
+GEMM_MAX_LN_WIDTH = 1024
+
+
+def gemm_tf32_reference(a, w, bias, ln=None, gelu=False, residual=None):
+    """Plain torch version of gemm_tf32, in float32."""
+    if ln is not None:
+        a = _layer_norm(a, *ln)
+    elif gelu:
+        a = F.gelu(a)
+    out = torch.matmul(a, w) + bias
+    return out if residual is None else residual + out
+
+
+def gemm_tf32(a, w, bias, *, key: str, ln=None, gelu: bool = False, residual=None):
+    """out [M, N] = op(a) @ w + bias (+ residual), the float32 token-tile GEMM
+    of the Swin kernels as a general product over any M rows: a [M, K], w
+    [K, N] ([in, out]), bias [N], op a two-pass LayerNorm (``ln``: (gamma,
+    beta) [K], eps 1e-5) or the erf GELU (``gelu``) applied as a is read, or
+    none. It takes the three forms of a pre-LN transformer layer: LN on load
+    with no residual, none or GELU on load with the residual [M, N].
+
+    CPU tensors: the plain version. CUDA tensors: tf32_split of w, the
+    LayerNorm statistics (row_stats_kernel) where ``ln`` is given, and
+    gemm_tf32_kernel (csrc/window_attn.cu); the card takes K % 32 == 0, N a
+    multiple of 96 or 128, K <= 1024 with ``ln``, contiguous 16-byte aligned
+    tensors. A call that launches the kernels counts one under the caller's
+    ``key`` (ops/launches.py); one on CPU tensors or over no rows counts none."""
+    on_load = "ln" if ln is not None else ("gelu" if gelu else "plain")
+    if (on_load, residual is not None) not in GEMM_FORMS:
+        given = "with" if residual is not None else "without"
+        raise ValueError(f"gemm_tf32 takes LN on load without the residual, or none or GELU on "
+                         f"load with it; got {on_load} {given}")
+    if a.dim() != 2 or w.dim() != 2 or a.shape[1] != w.shape[0]:
+        raise ValueError(f"gemm_tf32 takes a [M, K] and w [K, N], got {tuple(a.shape)} and "
+                         f"{tuple(w.shape)}")
+    m, k = a.shape
+    n = w.shape[1]
+    expected = {"bias": (bias, (n,))}
+    if ln is not None:
+        expected.update(gamma=(ln[0], (k,)), beta=(ln[1], (k,)))
+    if residual is not None:
+        expected["residual"] = (residual, (m, n))
+    for name, (t, shape) in {"a": (a, (m, k)), "w": (w, (k, n)), **expected}.items():
+        if t.dtype != torch.float32:
+            raise TypeError(f"gemm_tf32 takes float32 tensors, got {t.dtype} for {name}")
+        if t.device != a.device:
+            raise ValueError(f"gemm_tf32: {name} is on {t.device}, a on {a.device}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"gemm_tf32: {name} must be {shape}, got {tuple(t.shape)}")
+    if a.device.type == "cpu":
+        return gemm_tf32_reference(a, w, bias, ln, gelu, residual)
+    if a.device.type != "cuda":
+        raise ValueError(f"gemm_tf32 runs on CPU or CUDA tensors, got {a.device}")
+    if k % 32 or (n % 96 and n % 128) or (ln is not None and k > GEMM_MAX_LN_WIDTH):
+        raise ValueError(f"the gemm_tf32 kernel takes K % 32 == 0, N a multiple of 96 or 128 and, "
+                         f"with LN on load, K <= {GEMM_MAX_LN_WIDTH}; got K {k}, N {n}")
+    operands = [a, bias] + [t for t, _ in expected.values() if t is not bias]
+    if not all(t.is_contiguous() for t in operands + [w]):
+        raise ValueError("gemm_tf32 needs contiguous tensors on the card")
+    if any(t.data_ptr() % KERNEL_ALIGN for t in operands + [w]):
+        raise ValueError(f"gemm_tf32 needs {KERNEL_ALIGN}-byte aligned tensors on the card")
+    out = torch.empty((m, n), dtype=torch.float32, device=a.device)
+    if m == 0:
+        return out
+    # The split and the statistics are held until the launches are queued (see launch_attention).
+    w_split = tf32_split(w)
+    stats = torch.empty((m, 2), dtype=torch.float32, device=a.device) if ln is not None else None
+    null = ctypes.c_void_p(None)
+    lib = _build.load_library()
+    with torch.cuda.device(a.device):
+        stream = ctypes.c_void_p(torch.cuda.current_stream(a.device).cuda_stream)
+        err = lib.gemm_tf32_launch(
+            *_ptrs(a, w_split, bias),
+            *(_ptrs(residual) if residual is not None else [null]),
+            *(_ptrs(*ln, stats) if ln is not None else [null, null, null]),
+            *_ptrs(out), m, n, k, GEMM_ON_LOAD[on_load], stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"gemm_tf32 kernel launch failed with cudaError {err}")
+    launches.count(key)
     return out
 
 

@@ -1,4 +1,4 @@
-"""Batched embedding pipeline (VGGish, PANN, Encodec, CLAP) on torch tensors.
+"""Batched embedding pipeline (VGGish, PANN, Encodec, CLAP, WavLM) on torch tensors.
 
 Counterpart of frechet_audio_distance_exported_tpu/pipeline.py. The host
 decodes, mono-mixes, resamples and applies PANN's reflect pad; waveforms are
@@ -13,7 +13,8 @@ The wire is int16 wherever the samples are: audio_io.Pcm16 items (score()'s
 streamed path: mono 16-bit PCM files at the model's rate) ship their decoded
 k as they are, CLAP's m too; other float input that is exactly on the grid
 is found by as_int16_exact (Family.prepare decides it for every family).
-Everything else ships float32. At 48 kHz an Encodec chunk whose files are
+Everything else ships float32. WavLM takes the wave itself and normalises
+each clip on the device. At 48 kHz an Encodec chunk whose files are
 all mono Pcm16 ships [b, 1, S] and the device repeats the channel; any
 other 48 kHz chunk ships [b, 2, S].
 Row order of the concatenated embedding matrix is files in input order,
@@ -39,6 +40,7 @@ from .models.clap import CLAP
 from .models.encodec import encodec_for_rate
 from .models.pann import PANN
 from .models.vggish import VGGish
+from .models.wavlm import WavLM, num_frames as wavlm_frames
 from .ops import frontends as fe
 from .ops import stats as stats_ops
 from .ops.resample import resample
@@ -478,9 +480,48 @@ class EncodecFamily(Family):
         return {"frames": int(valid.sum())}
 
 
+class WavLMFamily(Family):
+    """WavLM-Large's rows, one a 20 ms frame of the convolution chain: the
+    16 kHz wave as it is (a Pcm16 item's int16 samples; other input mixed to
+    mono and resampled as VGGish's), normalised per clip on the device. Files
+    are grouped by their exact length, so no program pads a clip, whose
+    normalisation and attention would see the padding; a long file shrinks
+    its group's batch, so that the attention's [B * 16, T, T] scores stay
+    within a 64-clip chunk of 10 s files. The ``step`` span counts the frames
+    folded in (``frames``)."""
+
+    cast_input = False  # the model normalises in float32, then casts
+    # The frames of a 10 s clip: the batch budget of the attention's scores.
+    budget_frames = wavlm_frames(160000)
+
+    build = staticmethod(lambda rate: WavLM())
+
+    def prep(self, data, sr, pcm16):
+        if not pcm16:
+            if data.ndim > 1:
+                data = np.mean(data, axis=1)
+            if sr != self.rate:
+                data = resample(data, sr, self.rate)
+            data = data.astype(np.float32)
+        frames = wavlm_frames(len(data))
+        if frames == 0:
+            raise ValueError(f"Audio too short for WavLM ({len(data)} samples: no frame)")
+        return data, frames
+
+    def group(self, item, file_batch, patch_chunk):
+        scale = (self.budget_frames / item.valid) ** 2
+        return len(item.row), max(1, min(file_batch, int(file_batch * scale)))
+
+    def embed(self, forward, wave, valid):
+        return forward(fe.dequant_i16(wave, self.full_scale))
+
+    def step_counts(self, valid):
+        return {"frames": int(valid.sum())}
+
+
 # The family entries, by registry.ModelConfig.family.
 FAMILIES = {"vggish": VGGishFamily, "pann": PannFamily, "clap": ClapFamily,
-            "encodec": EncodecFamily}
+            "encodec": EncodecFamily, "wavlm": WavLMFamily}
 
 
 def cast_model(family: str, model: torch.nn.Module, dtype: torch.dtype) -> torch.nn.Module:

@@ -3,7 +3,9 @@
 Copied from frechet_audio_distance_exported_tpu/registry.py (L15-138) so
 the port never imports the JAX package, the download URL and sha256 tables
 and the reference artifacts' names included (L50-88); the PANN frontend
-geometry lives in ops/frontends.PANN_CONFIGS.
+geometry lives in ops/frontends.PANN_CONFIGS. The port also runs a model
+the JAX package does not, wavlm-large, on random weights only: no bundle or
+reference artifact is published for it.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ VALID_MODELS = {
     "encodec-24k": {"sample_rate": 24000, "embedding_dim": 128, "channels": 1},
     "encodec-48k": {"sample_rate": 48000, "embedding_dim": 128, "channels": 2},
     "clap": {"sample_rate": 48000, "embedding_dim": 512},
+    "wavlm-large": {"sample_rate": 16000, "embedding_dim": 1024},
 }
 
 # Map PANN model names to their sample rates (JAX registry.py:26-31).
@@ -113,6 +116,8 @@ class ModelConfig:
             return "pann"
         if self.name.startswith("encodec-"):
             return "encodec"
+        if self.name.startswith("wavlm-"):
+            return "wavlm"
         return self.name
 
 
@@ -126,14 +131,15 @@ def get_model_config(model_name: str) -> ModelConfig:
         name=model_name,
         sample_rate=cfg["sample_rate"],
         embedding_dim=cfg["embedding_dim"],
-        weight_filename=WEIGHT_FILENAMES[model_name],
-        reference_artifact=REFERENCE_ARTIFACTS[model_name],
+        weight_filename=WEIGHT_FILENAMES.get(model_name, ""),
+        reference_artifact=REFERENCE_ARTIFACTS.get(model_name, ""),
     )
 
 
-# The model names this package runs: all seven of VALID_MODELS.
+# The model names this package runs: all eight of VALID_MODELS.
 PORTED_MODELS = (
     "vggish", "pann-8k", "pann-16k", "pann-32k", "encodec-24k", "encodec-48k", "clap",
+    "wavlm-large",
 )
 
 

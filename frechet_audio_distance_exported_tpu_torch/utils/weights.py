@@ -21,7 +21,8 @@ nn.LSTM's [4H, in] (the gate order i, f, g, o is the same).
 
 On a cache miss, get_params downloads a bundle or the reference artifact
 and converts the artifact in process (JAX utils/weights.py:103-193), and
-save_weights writes the bundle in the JAX package's format.
+save_weights writes the bundle in the JAX package's format. WavLM-Large,
+which the JAX package does not run, has no bundle: random weights only.
 """
 
 from __future__ import annotations
@@ -33,7 +34,7 @@ import numpy as np
 import torch
 
 from .. import registry
-from ..models import encodec
+from ..models import encodec, wavlm
 from ..models.clap import CLAP
 from ..models.pann import BLOCK_CHANNELS
 from ..models.vggish import CONV_CFG, FC_DIMS
@@ -240,6 +241,39 @@ def _encodec_random(model_name: str, uniform) -> Dict[str, torch.Tensor]:
     return state
 
 
+def _wavlm_random(uniform, gen: torch.Generator) -> Dict[str, torch.Tensor]:
+    """PyTorch's default initialisation of the modules HF's WavLM builds
+    them from: convolution and linear weights and biases uniform(+-1/sqrt(
+    fan_in)), LayerNorms the identity, the relative-position table N(0, 1),
+    gru_rel_pos_const 1, and the positional convolution's weight_g the norm
+    of weight_v at each tap (weight_norm's start)."""
+    with torch.device("meta"):
+        shapes = {k: tuple(v.shape) for k, v in wavlm.WavLM().state_dict().items()}
+    state = {}
+    for key, shape in shapes.items():
+        leaf = key.rsplit(".", 1)[-1]
+        if key.endswith("layer_norm.weight") or leaf == "gate_const":
+            state[key] = torch.ones(shape)
+        elif key.endswith("layer_norm.bias"):
+            state[key] = torch.zeros(shape)
+        elif leaf == "rel_attn_embed":
+            state[key] = torch.randn(shape, generator=gen)
+        elif leaf == "weight_g":
+            continue  # after weight_v, below
+        elif leaf == "b":
+            state[key] = uniform(shape, shapes[key[:-1] + "w"][0])
+        elif leaf == "w":
+            state[key] = uniform(shape, shape[0])
+        else:  # convolution weights [out, in / groups, k] and the positional conv's bias
+            w = shapes[key.replace("bias", "weight_v")] if leaf == "bias" else shape
+            state[key] = uniform(shape, w[1] * w[2])
+    for key in shapes:
+        if key.endswith("weight_g"):
+            v = state[key[:-1] + "v"]
+            state[key] = v.square().sum(dim=(0, 1), keepdim=True).sqrt()
+    return {k: state[k] for k in shapes}
+
+
 def check_encodec_bundle(state: Mapping[str, torch.Tensor], model_name: str, path: str) -> None:
     """Raise ValueError, naming the file, where an Encodec bundle is of the
     other rate: 48 kHz has GroupNorm leaves and 2 input channels, 24 kHz
@@ -260,7 +294,7 @@ def init_random_params(model_name: str, seed: int = 0) -> Dict[str, torch.Tensor
     PANN and Encodec: torch-default-like uniform(±1/sqrt(fan_in)), BatchNorm
     and GroupNorm as the identity like the JAX initializer
     (models/common.py:194); Encodec's LSTM as _encodec_random. CLAP: as
-    _clap_random."""
+    _clap_random. WavLM: as _wavlm_random."""
     family = registry.ported_model_config(model_name).family
     gen = torch.Generator().manual_seed(seed)
     if family == "clap":
@@ -272,6 +306,8 @@ def init_random_params(model_name: str, seed: int = 0) -> Dict[str, torch.Tensor
 
     if family == "encodec":
         return _encodec_random(model_name, uniform)
+    if family == "wavlm":
+        return _wavlm_random(uniform, gen)
 
     def identity_bn(prefix, dim):
         ones, zeros = np.ones(dim, np.float32), np.zeros(dim, np.float32)
@@ -332,6 +368,8 @@ def get_params(model_name: str, ckpt_dir: str, weights: str = "auto", seed: int 
     if weights != "auto":
         raise ValueError(f"weights must be 'auto' or 'random', got {weights!r}")
     cfg = registry.ported_model_config(model_name)
+    if not cfg.weight_filename:
+        raise ValueError(f"{model_name} has no published weight bundle; pass weights='random'")
     bundle_path = os.path.join(ckpt_dir, cfg.weight_filename)
     if os.path.exists(bundle_path):
         return _load_bundle(model_name, cfg, bundle_path)

@@ -110,9 +110,11 @@ def test_tables_match_the_jax_registry():
     for table in ("EXPORTED_MODEL_URLS", "EXPORTED_MODEL_SHA256", "WEIGHT_BUNDLE_URLS",
                   "WEIGHT_BUNDLE_SHA256", "REFERENCE_ARTIFACTS"):
         assert getattr(registry, table) == getattr(jax_registry, table), table
-    for name in registry.VALID_MODELS:
+    for name in jax_registry.VALID_MODELS:
         assert (registry.get_model_config(name).reference_artifact
                 == jax_registry.get_model_config(name).reference_artifact)
+    for name in set(registry.VALID_MODELS) - set(jax_registry.VALID_MODELS):
+        assert registry.get_model_config(name).reference_artifact == ""
 
 
 def test_hosted_bundle_is_downloaded_and_cached(tmp_path, online, monkeypatch):
