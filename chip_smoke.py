@@ -32,8 +32,12 @@ gemm_tf32 (the float32 Swin kernels' token-tile GEMM) runs the five products
 of a WavLM-Large forward over a 64-clip chunk (M = 31,936: LN on load at
 K = 512 and 1024, N = 3200 for qkv with the gate, the residual, GELU on load
 at K = 4096), each held to its plain version (WAVLM_GEMM_ATOL, which the
-same product in 1xTF32 must miss) and timed beside it and its bound. Then it
-drives the ported paths through the public API,
+same product in 1xTF32 must miss) and timed beside it and its bound; and
+WavLM's attention kernel (csrc/wavlm_attn.cu) at a 64-clip chunk's shape
+(B = 64, T = 499, 16 heads of 64) against the float64 attention
+(WAVLM_ATTN_ATOL, which the attention in 1xTF32 must miss), timed beside its
+plain version, the ATen chain it replaced and its bound, a layer and a chunk
+of 24. Then it drives the ported paths through the public API,
 FrechetAudioDistance(weights="random", device="cuda"):
 - VGGish: scores two 16 kHz WAV corpora and checks the results;
 - PANN: scores the same corpora with pann-16k, and a part of them with
@@ -801,6 +805,100 @@ def wavlm_gemm_phase(torch, window_attn, launches, wavlm) -> dict:
           f"of the device time {ms_text(summary['device_ms'])} the split "
           f"{ms_text(summary['split_ms'])}")
     return summary
+
+
+# wavlm_attention (3xTF32) vs the float64 attention, on outputs of order 1 (q, k, v and the
+# gate's logits N(0, 1), the table N(0, 1)): about 2e-6 (3xTF32 and float32 softmax); the same
+# attention with 1xTF32 products misses it by about 1e-3 (tests/test_torch_wavlm_attention.py).
+WAVLM_ATTN_ATOL = 2e-5
+
+
+def wavlm_attention_phase(torch, launches, wavlm, wavlm_attn, _build) -> dict:
+    """wavlm_attention at a 64-clip chunk of WavLM-Large (B = 64, T = 499, 16
+    heads of 64): qkvg rows, gate logits and the [320, 16] table drawn N(0,
+    1), the relative table gathered as Encoder.relative_table gathers it, the
+    layer's gru_rel_pos_const around 1. The kernel against the float64
+    attention (its plain version in float64, eight clips at a time) within
+    WAVLM_ATTN_ATOL, which the attention with 1xTF32 products must miss; two
+    launches the same bits and two ``wavlm_attention`` counts; the ptxas line
+    (no spill). Times: the kernel, its plain version (float32), and the ATen
+    chain it replaced (Attention.aten_forward: the head split, baddbmm,
+    addcmul_ of the gated [16, T, T] bias, softmax, bmm, the heads' gather),
+    a layer and a chunk of 24 layers, beside the bound: 4 B H T^2 64 flops
+    at the 3xTF32 rate (65.3 GFLOP, 0.396 ms a layer)."""
+    from frechet_audio_distance_exported_tpu_torch.ops.window_attn import _tf32
+
+    cfg = wavlm.WAVLM_LARGE
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    b, t, heads = WAVLM_CLIPS, wavlm.num_frames(WAVLM_SAMPLES), cfg.heads
+    c = cfg.hidden
+    qkvg = torch.randn((b * t, 3 * c + cfg.gate_dim * heads), generator=gen, device=dev)
+    table = torch.randn((cfg.num_buckets, heads), generator=gen, device=dev)
+    rel = table[wavlm.relative_bucket(torch.arange(1 - t, t, device=dev), cfg.num_buckets,
+                                      cfg.max_distance)].t().contiguous()
+    gate_const = 1.0 + 0.2 * torch.randn((heads,), generator=gen, device=dev)
+    call = lambda: wavlm_attn.wavlm_attention(qkvg, rel, gate_const, b, t)  # noqa: E731
+    launches.zero()
+    out, again = call(), call()
+    torch.cuda.synchronize()
+    check(launches.read()["wavlm_attention"] == 2,
+          f"wavlm_attention: two calls counted {launches.read()['wavlm_attention']}")
+    check(bool(torch.isfinite(out).all()), "wavlm_attention: output not finite")
+    check(torch.equal(out, again), "wavlm_attention: two calls differ")
+    del again
+    err, tf32_err = 0.0, 0.0
+    for b0 in range(0, b, 8):
+        rows = slice(b0 * t, (b0 + 8) * t)
+        args = (qkvg[rows].double(), rel.double(), gate_const.double(), 8, t)
+        want = wavlm_attn.wavlm_attention_reference(*args)
+        err = max(err, float((out[rows].double() - want).abs().max()))
+        # 1xTF32: q, k and v rounded to TF32, and the probabilities before p v.
+        low = qkvg[rows].clone()
+        low[:, :3 * c] = _tf32(low[:, :3 * c])
+        q, k, v = (low[:, i * c:(i + 1) * c].double().reshape(8, t, heads, 64).transpose(1, 2)
+                   for i in range(3))
+        logits = low[:, 3 * c:].double().reshape(8, t, heads, 2, 4).sum(-1)
+        ga, gb = torch.sigmoid(logits).unbind(-1)
+        gate = ga * (gb * gate_const.double() - 1.0) + 2.0
+        scores = (q @ k.transpose(-1, -2) / 8.0
+                  + gate.transpose(1, 2)[..., None] * wavlm_attn.expand_relative(rel.double(), t))
+        probs = _tf32(torch.softmax(scores, dim=-1).float()).double()
+        low_out = (probs @ v).transpose(1, 2).reshape(8 * t, c)
+        tf32_err = max(tf32_err, float((low_out - want).abs().max()))
+        del want, low, q, k, v, scores, probs, low_out
+    attention = wavlm.Attention(cfg)
+    attention.gate_const.data = gate_const.cpu()
+    attention = attention.to(dev)
+    bias = wavlm_attn.expand_relative(rel, t).contiguous()
+    aten = lambda: attention.aten_forward(qkvg, b, t, bias)  # noqa: E731
+    aten_err = float((aten() - out).abs().max())
+    plain = lambda: wavlm_attn.wavlm_attention_reference(qkvg, rel, gate_const, b, t)  # noqa: E731
+    kern_ms, plain_ms, runs = timed_pair(torch, call, plain, iters=10)
+    aten_ms = cuda_ms(torch, aten, iters=5)
+    flops = 4 * b * heads * t * t * 64
+    nbytes = 4 * (qkvg.numel() + rel.numel() + heads + b * t * c)
+    bound_ms, bound_by = bound(flops, nbytes, TF32X3_FLOPS)
+    ptxas = ptxas_rows(_build.library_path().with_suffix(".log").read_text(), "wavlm_attn_cu")
+    print(f"wavlm_attention (B {b}, T {t}, {heads} heads of 64): max_abs_err {err:.3e} vs float64 "
+          f"(1xTF32 {tf32_err:.3e}; the ATen chain {aten_err:.3e} from the kernel), kernel "
+          f"{kern_ms:.4f} ms ({runs[1]:.4f}, {runs[2]:.4f}) plain {plain_ms:.4f} ms "
+          f"({runs[0]:.4f}, {runs[3]:.4f}) ATen chain {aten_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by} at "
+          f"{rate_name(TF32X3_FLOPS)}; {flops / 1e9:.2f} GFLOP, {flops / kern_ms / 1e9:.2f} "
+          f"TFLOP/s); a chunk of {cfg.layers} layers: kernel {cfg.layers * kern_ms:.3f} ms, ATen "
+          f"chain {cfg.layers * aten_ms:.3f} ms, bound {cfg.layers * bound_ms:.3f} ms; ptxas "
+          f"{ptxas}")
+    check(err <= WAVLM_ATTN_ATOL, f"wavlm_attention vs float64: {err} > {WAVLM_ATTN_ATOL}")
+    check(tf32_err > WAVLM_ATTN_ATOL,
+          f"wavlm_attention: 1xTF32 reads {tf32_err}, within {WAVLM_ATTN_ATOL}: the bar cannot "
+          "tell 3xTF32 from TF32")
+    check(len(ptxas) == 1 and "0 bytes spill stores" in ptxas[0][2],
+          f"wavlm_attention_kernel's ptxas lines: {ptxas}")
+    return {"max_abs_err": err, "tf32_err": tf32_err, "aten_err": aten_err,
+            "ms": cfg.layers * kern_ms, "layer_ms": kern_ms, "plain_ms": cfg.layers * plain_ms,
+            "aten_ms": cfg.layers * aten_ms, "bound_ms": cfg.layers * bound_ms,
+            "layer_bound_ms": bound_ms, "bound_by": bound_by, "tflops": flops / kern_ms / 1e9,
+            "registers": ptxas[0][1]}
 
 
 def wavlm_counts(cfg, forwards: int) -> dict:
@@ -2178,7 +2276,7 @@ def main() -> int:
     from frechet_audio_distance_exported_tpu_torch.ops import _build, cuda_frontend, cuda_pann_frontend
     from frechet_audio_distance_exported_tpu_torch.ops import frontends as fe
     from frechet_audio_distance_exported_tpu_torch.ops import group_norm as group_norm_ops
-    from frechet_audio_distance_exported_tpu_torch.ops import launches, window_attn
+    from frechet_audio_distance_exported_tpu_torch.ops import launches, wavlm_attn, window_attn
     from frechet_audio_distance_exported_tpu_torch.ops import stats as stats_ops
     from frechet_audio_distance_exported_tpu_torch.parallel import embed
     from frechet_audio_distance_exported_tpu_torch.parallel import mesh as mesh_mod
@@ -2213,6 +2311,7 @@ def main() -> int:
     gnorm = group_norm_kernel_phase(torch, group_norm_ops, encodec,
                                     _build, FAMILIES["encodec"].file_batch["cuda"])
     wavlm_gemm = wavlm_gemm_phase(torch, window_attn, launches, wavlm)
+    wavlm_attention = wavlm_attention_phase(torch, launches, wavlm, wavlm_attn, _build)
 
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
@@ -2468,6 +2567,32 @@ def main() -> int:
             "bound_flops_per_s": TF32X3_FLOPS,
             "at": "one 64-clip wavlm-large chunk (M = 31936): the 97 products of a forward",
             "shapes": wavlm_gemm["shapes"],
+        },
+        {
+            "name": "wavlm_attention",
+            "route": "cuda",
+            "source": "frechet_audio_distance_exported_tpu_torch/csrc/wavlm_attn.cu",
+            "entry": "ops/wavlm_attn.wavlm_attention",
+            "replaces": "none (the JAX package has no WavLM); ATen's attention chain in "
+                        "models/wavlm.py",
+            "launches": wavlm_forward["launches"]["wavlm_attention"],
+            "launches_of": "one wavlm-large forward of a 64-clip chunk",
+            "max_abs_err": wavlm_attention["max_abs_err"],
+            "tf32_err": wavlm_attention["tf32_err"],
+            "err_of": "output vs float64, absolute; tf32: the attention with 1xTF32 products",
+            "ms": wavlm_attention["ms"],
+            "layer_ms": wavlm_attention["layer_ms"],
+            "plain_ms": wavlm_attention["plain_ms"],
+            "aten_ms": wavlm_attention["aten_ms"],
+            "bound_ms": wavlm_attention["bound_ms"],
+            "layer_bound_ms": wavlm_attention["layer_bound_ms"],
+            "bound_by": wavlm_attention["bound_by"],
+            "tflops": wavlm_attention["tflops"],
+            "registers": wavlm_attention["registers"],
+            "library_ms": None,
+            "arith": "3xtf32 wgmma",
+            "bound_flops_per_s": TF32X3_FLOPS,
+            "at": "one 64-clip wavlm-large chunk (B = 64, T = 499): the 24 layers' attention",
         },
         {
             "name": "group_norm",

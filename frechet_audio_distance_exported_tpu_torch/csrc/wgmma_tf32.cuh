@@ -1,6 +1,7 @@
-// Hopper (sm_90a) building blocks for the float32 kernels of window_attn.cu: warpgroup matrix
-// multiplies (wgmma) with TF32 operands and the 3xTF32 split that keeps float32 accuracy. The
-// mbarrier ring, TMA and register hand-over helpers are wgmma_bf16.cuh's (namespace hopper).
+// Hopper (sm_90a) building blocks for the float32 kernels of window_attn.cu and wavlm_attn.cu:
+// warpgroup matrix multiplies (wgmma) with TF32 operands and the 3xTF32 split that keeps float32
+// accuracy. The mbarrier ring, TMA and register hand-over helpers are wgmma_bf16.cuh's (namespace
+// hopper).
 //
 // TF32 wgmma (m64nNk8, float32 sums) differs from bf16's in three ways that shape the kernels:
 // - Both shared-memory operands must be K-major: there is no transpose bit. So a weight W [in,
@@ -41,6 +42,22 @@ __device__ __forceinline__ void split_tf32(float a, uint32_t& hi, uint32_t& lo) 
 template <int N>
 __device__ __forceinline__ void mma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db,
                                        int accumulate);
+
+template <>
+__device__ __forceinline__ void mma_rs<64>(float (&d)[32], const uint32_t (&a)[4], uint64_t db,
+                                            int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
 
 template <>
 __device__ __forceinline__ void mma_rs<96>(float (&d)[48], const uint32_t (&a)[4], uint64_t db,

@@ -30,11 +30,17 @@ and each layer's qkv, proj, fc1 and fc2) run on ops/window_attn.gemm_tf32
 residual in the epilogue). Each layer's gate projection rides as 128
 block-diagonal columns after qkv's 3072 (N = 3200, LN on load: the gate reads
 the same LN1(x)), for 4 % more of qkv's FLOPs and no pass of its own. The
-attention runs in ATen with TF32 off: baddbmm, the gated bias added in place
-by addcmul_ from the [16, T, T] table (no [B, H, T, T] bias beside the
-scores), softmax, bmm. On the CPU the same calls run gemm_tf32's plain
-version. In a bf16 model (pipeline.cast_model) the clip is normalised in
-float32 and cast to the weights' dtype, and every product runs in ATen.
+attention is one launch of ops/wavlm_attn.wavlm_attention a layer (3xTF32
+wgmma, the gate, the gated bias and an online softmax on chip), which reads
+q, k, v and the gate's logits from the qkvg rows, the bias as the [16, 2T - 1]
+relative table (Encoder.relative_table, gathered once a forward), and writes
+the heads' outputs where proj reads them. On the CPU the products run
+gemm_tf32's plain version and the attention runs in ATen with TF32 off:
+baddbmm, the gated bias added in place by addcmul_ from the [16, T, T] table
+(no [B, H, T, T] bias beside the scores), softmax, bmm. In a bf16 model
+(pipeline.cast_model) the clip is normalised in float32 and cast to the
+weights' dtype, and every product and the attention run in ATen, as on the
+CPU.
 
 State: linear weights [in, out] (``w``, ``b``), LayerNorms ``weight`` and
 ``bias``, the positional convolution's ``weight_g`` [1, 1, 128] and
@@ -52,6 +58,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import launches
+from ..ops.wavlm_attn import wavlm_attention
 from ..ops.window_attn import gemm_tf32
 from ..utils import profiling
 
@@ -102,6 +109,12 @@ def relative_bucket(rel: torch.Tensor, num_buckets: int = 320,
     large = large / math.log(max_distance / exact) * (half - exact)
     large = torch.clamp_max((exact + large).to(torch.long), half - 1)
     return (rel > 0).to(torch.long) * half + torch.where(mag < exact, mag, large)
+
+
+def _hand_attention(x: torch.Tensor) -> bool:
+    """Whether the attention of a model whose tensors are like x runs the
+    hand kernel: float32 on the card. Elsewhere it runs in ATen."""
+    return x.is_cuda and x.dtype == torch.float32
 
 
 def _param(*shape) -> nn.Parameter:
@@ -232,13 +245,21 @@ class Attention(nn.Module):
 
     def forward(self, qkvg: torch.Tensor, b: int, t: int, bias: torch.Tensor) -> torch.Tensor:
         """qkvg [B * T, 3C + 8H] (q, k, v, the gate's projection) and the
-        position bias [H, T, T] -> the heads' outputs [B * T, C]."""
+        position bias as Encoder.position_bias gives it (the [H, 2T - 1]
+        relative table for the hand kernel, else [H, T, T]) -> the heads'
+        outputs [B * T, C]."""
+        if _hand_attention(qkvg):
+            return wavlm_attention(qkvg, bias, self.gate_const, b, t)
+        if qkvg.is_cuda:
+            launches.count("wavlm_attention[bf16]")
+        return self.aten_forward(qkvg, b, t, bias)
+
+    def aten_forward(self, qkvg: torch.Tensor, b: int, t: int, bias: torch.Tensor) -> torch.Tensor:
+        """The attention in ATen (the CPU's and a bf16 model's; on a float32
+        card, what the hand kernel replaced): bias [H, T, T]."""
         h = self.heads
         c = self.qkv.w.shape[1] // 3
         d = c // h
-        if qkvg.is_cuda:
-            launches.count("wavlm_attention" if qkvg.dtype == torch.float32
-                           else "wavlm_attention[bf16]")
         half = self.gate_dim // 2
         ga, gb = torch.sigmoid(qkvg[:, 3 * c:].view(b, t, h, 2, half).sum(-1)).unbind(-1)
         gate = ga * (gb * self.gate_const - 1.0) + 2.0  # [B, T, H]
@@ -278,8 +299,19 @@ class Encoder(nn.Module):
         self.layers = nn.ModuleList(Layer(cfg) for _ in range(cfg.layers))
         self.layer_norm = LayerNorm(cfg.hidden)
 
+    def relative_table(self, t: int) -> torch.Tensor:
+        """[H, 2T - 1]: E[bucket(r), h] at column r + T - 1, for r = s - t
+        from 1 - T to T - 1."""
+        rel = torch.arange(1 - t, t, device=self.rel_attn_embed.device)
+        buckets = relative_bucket(rel, self.cfg.num_buckets, self.cfg.max_distance)
+        return self.rel_attn_embed[buckets].t().contiguous()
+
     def position_bias(self, t: int) -> torch.Tensor:
-        """[H, T, T]: E[bucket(s - t), h]."""
+        """The bias Attention.forward takes on this model's device and dtype:
+        the relative table where the hand kernel runs, else [H, T, T]:
+        E[bucket(s - t), h]."""
+        if _hand_attention(self.rel_attn_embed):
+            return self.relative_table(t)
         pos = torch.arange(t, device=self.rel_attn_embed.device)
         buckets = relative_bucket(pos[None, :] - pos[:, None], self.cfg.num_buckets,
                                   self.cfg.max_distance)

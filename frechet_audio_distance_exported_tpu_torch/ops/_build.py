@@ -274,4 +274,16 @@ def load_library() -> ctypes.CDLL:
     lib.group_norm_apply_launch.restype = ctypes.c_int
     lib.group_norm_blocks_per_sm.argtypes = [ctypes.c_int, ctypes.c_int]  # bf16, kernel
     lib.group_norm_blocks_per_sm.restype = ctypes.c_int
+    # csrc/wavlm_attn.cu
+    lib.wavlm_attention_launch.argtypes = [
+        ctypes.c_void_p,  # qkvg [B * T, 3C + 8H]
+        ctypes.c_void_p,  # rel [H, 2T - 1]
+        ctypes.c_void_p,  # gate_const [H]
+        ctypes.c_void_p,  # out [B * T, C]
+        ctypes.c_int,  # batch
+        ctypes.c_int,  # T
+        ctypes.c_int,  # heads
+        ctypes.c_void_p,  # cudaStream_t
+    ]
+    lib.wavlm_attention_launch.restype = ctypes.c_int
     return lib

@@ -9,9 +9,11 @@ counts one ``group_norm`` a norm (its moments) and, where the apply writes
 a convolution's epilogue, one ``group_norm_apply.<form>`` an apply
 (ops/group_norm.py's FORMS). window_attn.gemm_tf32, the general product,
 counts one under the key its caller passes: WavLM's products count
-``wavlm_gemm``. WavLM (models/wavlm.py) counts one ``wavlm_attention`` a
-layer's attention on the card (ATen's kernels; ``[bf16]`` in a bf16 model,
-whose products run in ATen and are not counted). Harnesses
+``wavlm_gemm``. ops/wavlm_attn.wavlm_attention counts one
+``wavlm_attention`` a launch of its kernel, one a layer of a float32 WavLM
+forward; a bf16 model's attention runs in ATen on the card and
+models/wavlm.py counts it as ``wavlm_attention[bf16]`` (its products run in
+ATen too and are not counted). Harnesses
 set every count to 0 with zero() and take them all with read().
 """
 
